@@ -1,13 +1,14 @@
-"""pyfft_tpu — a TPU-native spectral-analysis framework.
+"""pyfft_tpu — a spectral-analysis framework for accelerators (JAX/XLA).
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of the
+A from-scratch JAX/XLA re-design of the capability set of the
 reference ``PYFFT`` package (Welch auto-/cross-spectral estimation, window
 suite with recommended-overlap metadata, STFT/spectrograms, FIR/IIR filtering
 and resampling, Hilbert and Laplace transforms, correlation tools,
 Doppler/center-of-gravity analysis, PCA, heat-pulse transport analysis), with
 
 * a batched, jit-compiled compute core (no per-segment Python loops),
-* Pallas TPU kernels for the hot framed-FFT and FIR paths (``pyfft_tpu.ops``),
+* ``jnp.fft`` transforms (cuFFT on the GPU), plus real-pair matmul DFTs
+  (``pyfft_tpu.ops``) on request,
 * multi-chip scaling via ``jax.sharding`` + ``shard_map`` with ppermute halo
   exchange and psum averaging (``pyfft_tpu.parallel``).
 """

@@ -1,4 +1,4 @@
-"""Correlation toolbox (TPU-native).
+"""Correlation toolbox on the device.
 
 Role of the reference ``ccf.py``: normalized cross-correlation with time
 lags, sliding-window averaged CCF, optimal-delay alignment, and the
@@ -6,7 +6,7 @@ pedagogical convolution/correlation identities.
 
 The production correlation path runs through the framework's overlap-save
 convolution (:func:`pyfft_tpu.filters.oaconvolve`) — batched block FFTs on
-the device (MXU path on TPU) instead of ``numpy.correlate``'s O(N^2) loop.
+the device instead of ``numpy.correlate``'s O(N^2) loop.
 """
 from __future__ import annotations
 

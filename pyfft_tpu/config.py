@@ -48,7 +48,7 @@ class SpectralConfig:
     minFreq: float | None = None            # -> tper = 2/minFreq
     onesided: bool | None = None            # None -> not complex input
     detrend: int | str = 1                  # 1 mean / 0 none / -1 linear
-    fft_backend: str | None = None          # None/'auto'|'xla'|'mxu'|'pallas'
+    fft_backend: str | None = None          # None/'auto'|'xla'|'mxu'
 
     def __post_init__(self):
         if self.detrend not in _DETREND_CODES:

@@ -4,7 +4,7 @@ Role of the reference's ``fft_deriv`` family (``fft_analysis.py:1419-1588``):
 derivative via ``ifft(wavenumber * fft(f))`` with the Sunaina et al. (2018)
 modified wavenumber ``j sin(k dx)/dx`` to suppress ringing, optional
 pre-filter/downsample, optional window, and one-sided-difference endpoint
-repair.  The transform runs on-device (real-pair MXU path on TPU).
+repair.  The transform runs on-device.
 """
 from __future__ import annotations
 

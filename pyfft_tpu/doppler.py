@@ -8,7 +8,7 @@ series, :62-126), and the synthetic reflectometer test chain
 downsampling, I/Q demodulation, and a two-sided Welch analysis of the
 complex video signal.
 
-TPU-first: ``cog`` over sliding windows is evaluated as ONE batched
+Batched: ``cog`` over sliding windows is evaluated as ONE batched
 windowed-FFT (windows are a batch axis feeding the device transform);
 the reference's per-window Python loop does not exist.
 """

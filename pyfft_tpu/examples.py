@@ -2,7 +2,7 @@
 
 The reference ships runnable ``test_*`` functions behind ``__main__``
 guards (SURVEY §4.1); users call them as smoke tests and usage examples.
-TPU-native equivalents, same signals and parameterizations:
+Device-pipeline equivalents, same signals and parameterizations:
 
 - :func:`test_fftpwelch`   <- reference ``fft_analysis.py:2895-2948``
   (square wave vs phase-shifted sine; both the ``Navr=8`` and the
@@ -125,7 +125,7 @@ def create_turb_spectra(addwhitenoise=False, plotit=False, rng=None):
 
 def testFFTanal(plotit=False, verbose=False):
     """Dual-implementation cross-validation (reference ``__testFFTanal__``,
-    :2817-2881): the TPU pipeline vs the independent NumPy/mlab oracle on
+    :2817-2881): the device pipeline vs the independent NumPy/mlab oracle on
     the same signals.  Returns ``(homebrew, oracle)`` result tuples."""
     tvec, sigx, sigy = _pwelch_testsigs()
     kw = dict(Navr=8, windowfunction="hamming", detrend_style=1,

@@ -3,7 +3,7 @@
 A user of the reference can ``from pyfft_tpu import fft_analysis as fft``
 (mirroring the reference package's ``from . import fft_analysis as fft``,
 ``__init__.py:13``) and find every public symbol of the reference module
-under its original name, backed by the TPU-native implementations.
+under its original name, backed by the device implementations.
 """
 
 # Welch engine + class API (reference fft_analysis.py:36-791, 1695-2887)

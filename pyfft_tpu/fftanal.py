@@ -6,9 +6,9 @@ class path scales *FFT coefficients* by ``sqrt(2)/S1/sqrt(ENBW)`` before
 squaring (reference ``fft_win``, ``:2179-2202``) — equivalent PSDs but a
 different intermediate convention; both are preserved here.
 
-TPU-first: this class is a thin stateful wrapper; all segment math runs in a
-single jitted, batched pipeline with two transform paths ('xla' complex fft
-on CPU/GPU, 'mxu' real-pair matmul DFTs on TPU).  The per-segment Python
+Device-first: this class is a thin stateful wrapper; all segment math runs in
+a single jitted, batched pipeline with two transform paths ('xla' complex fft,
+the default; 'mxu' real-pair matmul DFTs on request).  The per-segment Python
 loop of the reference (``:2156-2176``) does not exist.  The O(nfreq)
 post-processing (coherence, averaging, lag transforms) runs in host NumPy.
 """
@@ -66,7 +66,7 @@ def _stft_core_xla(x, tvec, win, s1, s2, sqrt_enbw, *, navr, nwins, noverlap,
 def _stft_core_mxu(xr, xi, tvec, win, s1, s2, sqrt_enbw, *, navr, nwins,
                    noverlap, nfft, nnyquist, onesided, detrend_style,
                    detrendwin):
-    """Real-pair batched STFT (TPU path; no complex dtype anywhere)."""
+    """Real-pair batched STFT (no complex dtype anywhere)."""
     det = detrend_func(detrend_style)
     if not detrendwin:
         xr = det(xr, axis=-1)
@@ -96,49 +96,6 @@ def _stft_core_mxu(xr, xi, tvec, win, s1, s2, sqrt_enbw, *, navr, nwins,
     return tt, Xr * scale, Xi * scale, pseg
 
 
-def _stft_segments_pallas(x, tv, dt, win_np, s1, s2, enbw, plan, fs, *,
-                          onesided, detrend_style):
-    """Fused-kernel STFT fast path (uniform timebase, global detrend).
-
-    The per-segment spectra come from the v3 Pallas kernel; the auxiliary
-    quantities the mxu core derives from the materialized frames are
-    reconstructed exactly instead: segment mean times ``tt`` from the
-    cumulative timebase, and the per-segment trapezoid power ``pseg`` from
-    Parseval (``sum |x_w|^2 = sum |X_k|^2 / nfft``) plus the two windowed
-    edge samples (trapezoid = rectangle - half the endpoints on a uniform
-    grid).  Scaling follows the fft_win conventions (reference
-    ``fft_analysis.py:2179-2202``).
-    """
-    from .ops.pallas_welch3 import stft_pallas3
-    nwins, hop, navr = plan.nwins, plan.hop, plan.navr
-    nfft, nny = plan.nfft, plan.nnyquist
-    Xr, Xi = stft_pallas3(x, None, win_np, 1.0, navr=navr, nwins=nwins,
-                          noverlap=plan.noverlap,
-                          detrend_style=detrend_style)
-    X = np.asarray(Xr[0]).astype(np.complex128) + 1j * np.asarray(Xi[0])
-
-    starts = plan.starts()
-    cs = np.concatenate([[0.0], np.cumsum(tv)])
-    tt = (cs[starts + nwins] - cs[starts]) / nwins
-
-    # pseg: trapz(|w (x - m)|^2, x=t) / S2 on the uniform grid
-    xc = x.astype(np.complex128 if np.iscomplexobj(x) else np.float64)
-    m = xc.mean() if detrend_style == 1 else 0.0
-    rect = np.sum(np.abs(X) ** 2, axis=-1) / nfft
-    e0 = np.abs(win_np[0] * (xc[starts] - m)) ** 2
-    e1 = np.abs(win_np[-1] * (xc[starts + nwins - 1] - m)) ** 2
-    pseg = dt * (rect - 0.5 * (e0 + e1)) / s2
-
-    if onesided:
-        X = X[..., :nny] * _onesided_amp_scale(nfft, nny)
-    else:
-        X = np.fft.fftshift(X, axes=-1)
-    X *= 1.0 / (s1 * np.sqrt(enbw))
-    freq = np.fft.fftfreq(nfft, 1.0 / fs)
-    freq = freq[:nny] if onesided else np.fft.fftshift(freq)
-    return tt, freq, X, pseg
-
-
 def stft_segments(x, tvec, win, plan: seg.SegmentPlan, fs, *, onesided=True,
                   detrend_style=1, detrendwin=False, fft_backend=None):
     """Functional STFT entry: returns ``(tt, freq, Xfft, pseg)`` (numpy).
@@ -157,20 +114,6 @@ def stft_segments(x, tvec, win, plan: seg.SegmentPlan, fs, *, onesided=True,
                   detrendwin=bool(detrendwin))
     backend = resolve_fft_backend(fft_backend)
     x = np.asarray(x)
-    tv = np.asarray(tvec, dtype=np.float64)
-    dt = (tv[-1] - tv[0]) / max(len(tv) - 1, 1)
-    # gate the Pallas fast path on the WHOLE timebase being uniform — a
-    # cheap O(nt) host check; a tvec uniform early but irregular later must
-    # take the mxu/xla cores, which honor the true per-segment timebase
-    uniform = bool(np.allclose(np.diff(tv), dt, rtol=1e-9, atol=1e-12))
-    if (backend in ("mxu", "pallas") and not detrendwin
-            and detrend_style in (0, 1) and plan.nfft == plan.nwins
-            and uniform):
-        from .ops.pallas_welch3 import _v3_geometry, stft_pallas3
-        if _v3_geometry(plan.nwins, plan.noverlap, 1) is not None:
-            return _stft_segments_pallas(x, tv, dt, win_np, s1, s2, enbw,
-                                         plan, fs, onesided=bool(onesided),
-                                         detrend_style=int(detrend_style))
     if backend == "xla":
         tt, X, pseg = _stft_core_xla(
             jnp.asarray(x), jnp.asarray(tvec), jnp.asarray(win_np),
@@ -1001,7 +944,7 @@ class fftanal(Struct):
 
     def __testFFTanal__(self):
         """Dual-implementation cross-validation (reference ``:2817-2881``):
-        run the TPU pipeline and the independent NumPy/mlab oracle on the
+        run the device pipeline and the independent NumPy/mlab oracle on the
         reference's test signals; returns the two result tuples."""
         from .examples import testFFTanal
         return testFFTanal(plotit=bool(getattr(self, "plotit", False)))

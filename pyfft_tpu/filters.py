@@ -1,8 +1,8 @@
-"""Filtering and resampling (TPU-native).
+"""Filtering and resampling on the device.
 
 Role of the reference ``filters.py`` (up/downsampling via Butterworth
 filtfilt + linear interpolation, smoothing, Butterworth band/low-pass
-helpers, complex filtfilt) — rebuilt for TPU:
+helpers, complex filtfilt) — rebuilt as batched device code:
 
 * **IIR design** (Butterworth, ``filters.py:58,143,323-341``) is pure
   host-side NumPy math (poles/bilinear transform), numerically matching
@@ -10,11 +10,11 @@ helpers, complex filtfilt) — rebuilt for TPU:
 * **IIR application** is a transposed-direct-form-II recurrence under
   ``jax.lax.scan`` — the exact zero-phase ``filtfilt`` semantics of the
   reference (odd extension, ``lfilter_zi`` initial conditions) are kept.
-  A sequential scan is not where a TPU shines, so for production streaming
-  the framework also provides:
+  A sequential scan does not use a parallel device well, so for production
+  streaming the framework also provides:
 * **FIR overlap-save convolution** — frames + rFFT multiply + inverse,
-  batched on device (MXU path on TPU), with :func:`firwin` windowed-sinc
-  design and :func:`iir_to_fir` (truncated-impulse-response equivalence,
+  batched on device (``jnp.fft``, cuFFT on the GPU), with :func:`firwin`
+  windowed-sinc design and :func:`iir_to_fir` (truncated-impulse-response equivalence,
   documented tolerance) to map the reference's IIR specs onto the streaming
   FIR path.  This is the kernel the time-sharded halo-exchange pipeline
   (:mod:`pyfft_tpu.parallel`) distributes.
@@ -390,8 +390,8 @@ def freqz(b, a=1.0, worN=512, fs=2 * np.pi):
 def iir_to_fir(b, a, ntaps=None, tol=1e-8):
     """Truncated-impulse-response FIR equivalent of a stable IIR filter.
 
-    The reference's zero-phase IIR (filtfilt) has no clean streaming TPU
-    form; applying this FIR (forward) or its zero-phase variant
+    The reference's zero-phase IIR (filtfilt) has no clean streaming
+    parallel form; applying this FIR (forward) or its zero-phase variant
     (:func:`fir_filtfilt`) reproduces the IIR magnitude response within
     ``tol`` (the truncation point is chosen where the impulse response has
     decayed below ``tol`` relative to its peak).
@@ -495,57 +495,19 @@ def oaconvolve(x, taps, mode="full", nfft=None):
     raise ValueError(f"unknown mode {mode!r}")
 
 
-def fir_filter(x, taps, axis=-1, backend=None):
-    """Causal FIR filtering ('same' alignment as lfilter).
-
-    ``backend``: 'os' (overlap-save, default) or 'pallas' (single-pass
-    fused kernel, taps <= 1024; see :mod:`pyfft_tpu.ops.pallas_fir`).
-    """
+def fir_filter(x, taps, axis=-1):
+    """Causal FIR filtering ('same' alignment as lfilter), by overlap-save
+    (:func:`oaconvolve`)."""
     x = np.moveaxis(np.asarray(x), axis, -1)
-    if backend == "pallas":
-        from .ops.pallas_fir import fir_pallas
-        lead = x.shape[:-1]
-        y = np.asarray(fir_pallas(x.reshape(-1, x.shape[-1]), taps))
-        y = y.reshape(lead + (x.shape[-1],)).astype(x.dtype, copy=False)
-    else:
-        y = oaconvolve(x, taps, mode="full")[..., :x.shape[-1]]
+    y = oaconvolve(x, taps, mode="full")[..., :x.shape[-1]]
     return np.moveaxis(y, -1, axis)
-
-
-def fir_filter_tiled(xr, taps, precision=None):
-    """Causal FIR filtering on the TPU kernel-native row view — the
-    zero-retile entry for chained pipelines.
-
-    ``xr (nch, nrows, 128)`` comes from :func:`tile_rows`; the result is
-    in the same layout (chain more filters, or feed the v3 Welch kernel),
-    and :func:`untile_rows` returns to ``(nch, nt)``.  A rank-2 call
-    (:func:`fir_filter` with ``backend='pallas'``) pays a physical
-    retiling pass on each side of the kernel (~35% of its wall at
-    8 x 2^24 on v5e); crossing the layout boundary once per *pipeline*
-    instead runs the filter at the DMA roofline.  Same numerics as
-    ``np.convolve(x, taps, 'full')[:nt]`` per channel.
-    """
-    from .ops.pallas_fir import fir_pallas_tiled
-    return fir_pallas_tiled(xr, taps, precision=precision)
-
-
-def tile_rows(x, block_rows=512):
-    """See :func:`pyfft_tpu.ops.pallas_fir.tile_rows` (layout boundary)."""
-    from .ops.pallas_fir import tile_rows as _tile
-    return _tile(x, block_rows)
-
-
-def untile_rows(xr, nt):
-    """Inverse of :func:`tile_rows`."""
-    from .ops.pallas_fir import untile_rows as _untile
-    return _untile(xr, nt)
 
 
 def fir_filtfilt(x, taps, axis=-1):
     """Zero-phase FIR filtering with reflected-edge padding.
 
     For a symmetric (linear-phase) ``taps`` this applies the filter once and
-    removes the group delay; the TPU-native stand-in for the reference's
+    removes the group delay; the device-friendly stand-in for the reference's
     IIR ``filtfilt`` intent (apply :func:`iir_to_fir` twice via squared
     response for an exact |H|^2 match).
     """
@@ -559,7 +521,6 @@ def fir_filtfilt(x, taps, axis=-1):
     delay = (ntaps - 1) // 2
     y = y[..., pad + delay:pad + delay + x.shape[-1]]
     return np.moveaxis(y, -1, axis)
-
 
 
 def resample_poly(x, up, down, axis=-1, taps=None):

@@ -1,6 +1,6 @@
 """Heat-pulse propagation analysis (W7-X ECRH modulation transport).
 
-TPU-native re-design of the reference driver ``HeatPulse_Funcs.py``
+Batched re-design of the reference driver ``HeatPulse_Funcs.py``
 (component #13): the per-channel Python loop over ``fft_pwelch``
 (``HeatPulse_Funcs.py:576-583``, ``_PWELCH_ch`` :532-574) becomes ONE
 batched device call — all ECE channels ride the ``(nch, navr, nfft)``
@@ -624,7 +624,7 @@ class HeatPulseFFT(HeatPulseBase):
     # -- the batched Welch driver (replaces the :576-583 channel loop) -------
 
     def _PWELCH_all(self, fft_backend=None):
-        """ONE batched `fft_pwelch` over all channels (TPU batch axis)."""
+        """ONE batched `fft_pwelch` over all channels (device batch axis)."""
         sig = np.asarray(self.sig)
         refsig = np.asarray(self.refsig)
         [self.freq, Pxy, Pxx, Pyy, Cxy, phi, fftinfo] = _spectral.fft_pwelch(

@@ -1,4 +1,4 @@
-"""Analytic signal via the Hilbert transform (TPU-native).
+"""Analytic signal via the Hilbert transform.
 
 Role of the reference ``hilbert.py``: zero the negative-frequency half of the
 spectrum, double the positive half, inverse-transform
@@ -9,8 +9,10 @@ The spectral mask convention matches the reference exactly: with
 doubled, bin ``nyq`` is kept at unit gain, bins ``nyq+1..`` are zeroed
 (reference ``hilbert.py:63-64`` == ``:105-109``).
 
-The whole transform (FFT -> mask -> IFFT) is one fused jitted computation;
-on TPU it runs through the real-pair MXU FFT stack.
+The whole transform (FFT -> mask -> IFFT) is one fused jitted computation
+through ``jnp.fft`` (cuFFT on the GPU).  The real-pair matmul chains
+(:func:`_hilbert_mxu`, :func:`_analytic_factored`) are reached by no public
+path and go with the rest of the matmul DFT tier.
 """
 from __future__ import annotations
 
@@ -19,11 +21,8 @@ from functools import partial, lru_cache
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .ops import mxu_fft
-from .ops.precision import split_bf16
 
 
 __all__ = ["hilbert", "hilbert_1d", "analytic_mask", "envelope_phase"]
@@ -51,13 +50,6 @@ def _hilbert_xla(u, *, nfft, axis):
 
 @partial(jax.jit, static_argnames=("nfft", "axis"))
 def _hilbert_mxu(u, *, nfft, axis):
-    # NOTE (measured, do not "optimize"): routing this through the
-    # half-spectrum rfft_pair/irfft_pair looks like a 2x MXU saving on
-    # paper, but their even/odd packing is a lane-stride-2 de-interleave —
-    # a pathological relayout on TPU that measured ~60x SLOWER than the
-    # full transform for 2^23-sample demod (460 ms vs 7 ms on v5e).  The
-    # full-length real-input path (first-stage matmuls already halve via
-    # im=None) is the fast one on this hardware.
     Ur, Ui = mxu_fft.fft_pair(u, None, n=nfft, axis=axis)
     h = jnp.asarray(analytic_mask(nfft), dtype=Ur.dtype)
     shape = [1] * Ur.ndim
@@ -113,7 +105,7 @@ def _analytic_factored(x, *, nfft, factors, prec):
     The recursive four-step in :mod:`pyfft_tpu.ops.mxu_fft` interleaves
     ``swapaxes`` + ``reshape`` pairs that XLA must materialize — the
     compiled forward+inverse chain for ``nfft=2^23`` carries ~1.5 GB of
-    layout-copy traffic, which dominates its wall time on TPU.  This
+    layout-copy traffic.  This
     variant factors ``nfft = n1*n2*n3`` and contracts the FIRST, MIDDLE,
     and LAST axes in place (``dot`` / ``einsum('kbc,bj->kjc')`` /
     ``dot``), so the spectrum lands in the permuted layout
@@ -220,266 +212,10 @@ def _analytic_factored(x, *, nfft, factors, prec):
     return zr, zi
 
 
-def _hilb_slab_kernel(ar_ref, ai_ref,
-                      c2_ref, s2_ref, c3_ref, s3_ref,
-                      c3i_ref, s3i_ref, t2r_ref, t2i_ref,
-                      or_ref, oi_ref, *, n1, n2, n3, h3, nyq, prec):
-    """Stages 2/3 + analytic mask + inverse 3'/2' of the factored chain,
-    fused per k1 slab in VMEM.
-
-    The XLA version of this middle section round-trips every intermediate
-    (k1, n2, n3) pair through HBM (4 matmul stages x read+write); here one
-    slab load and one slab store bracket all 16 matmuls, so the chain's
-    HBM traffic drops from ~7 full-array round-trips to ~3.  Table
-    symmetry (DFT matrices are symmetric; inverse = same cos, negated sin)
-    keeps every contraction a plain row-major ``jnp.dot``.  The per-k1
-    stage-1 twiddles are applied by XLA *before* the call (they fuse into
-    the stage-1 matmul epilogue; as in-kernel ``(1, n2)`` blocks their
-    BlockSpecs were Mosaic-illegal — second-to-last dim 1).
-    """
-    import jax.numpy as jnp
-
-    k1 = pl.program_id(0)
-    Ar = ar_ref[0]                               # (n2, n3): (b, c)
-    Ai = ai_ref[0]
-
-    # Mosaic's dot lowering supports only DEFAULT and HIGHEST precision —
-    # the 3-pass compromise routes through ops/precision.dot_bf16x3, the
-    # same split every other kernel uses.  The table operand is split
-    # in-kernel (a few VPU ops on constants already resident in VMEM —
-    # <0.1% of the 16 matmuls — not worth doubling the table plumbing
-    # with host-side pre-splits).
-    if prec == "bf16x3":
-        from .ops.precision import dot_bf16x3
-
-        def dot(a, b):
-            bh, bl = split_bf16(b)
-            return dot_bf16x3(a, bh, bl)
-    else:
-        _P = (jax.lax.Precision.HIGHEST if prec == "highest"
-              else jax.lax.Precision.DEFAULT)
-
-        def dot(a, b):
-            return jnp.dot(a, b, precision=_P,
-                           preferred_element_type=jnp.float32)
-
-    # stage 2: contract b -> (k2, c)
-    C2, S2 = c2_ref[...], s2_ref[...]
-    Br = dot(C2, Ar) - dot(S2, Ai)
-    Bi = dot(C2, Ai) + dot(S2, Ar)
-    # mid twiddle W_{n2 n3}^{c k2} in (k2, c) layout
-    t2r, t2i = t2r_ref[...], t2i_ref[...]
-    Br, Bi = Br * t2r - Bi * t2i, Br * t2i + Bi * t2r
-    # stage 3: contract c -> (k2, k3), and the analytic mask at
-    # k = k1 + n1 k2 + n1 n2 k3.  For even n3 (nyq = n1 n2 n3 / 2) the
-    # mask's survivor set is EXACTLY k3 < n3/2 — since k1 + n1 k2 <
-    # n1 n2, k < nyq iff k3 <= n3/2 - 1, and the lone unit-gain Nyquist
-    # bin sits at (k1, k2, k3) = (0, 0, n3/2) — so the forward stage-3
-    # and inverse stage-3' matmuls run at HALF width (the c3f/s3f tables
-    # arrive pre-sliced to h3 = n3/2 columns / c3i/s3i to h3 rows; the
-    # dropped Nyquist contribution is restored by a closed-form rank-1
-    # correction outside the kernel).  8 of the 16 slab matmuls halve.
-    C3f, S3f = c3_ref[...], s3_ref[...]
-    Xr = dot(Br, C3f) - dot(Bi, S3f)
-    Xi = dot(Br, S3f) + dot(Bi, C3f)
-
-    i2 = jax.lax.broadcasted_iota(jnp.int32, (n2, h3), 0)
-    i3 = jax.lax.broadcasted_iota(jnp.int32, (n2, h3), 1)
-    kk = k1 + n1 * i2 + (n1 * n2) * i3
-    if h3 == n3:             # full-width path (odd n3): original mask
-        h = jnp.where((kk == 0) | (kk == nyq), 1.0,
-                      jnp.where(kk < nyq, 2.0, 0.0)).astype(jnp.float32)
-    else:                    # survivors all double except DC
-        h = jnp.where(kk == 0, 1.0, 2.0).astype(jnp.float32)
-    Xr = Xr * h
-    Xi = Xi * h
-
-    # inverse stage 3' (C3v = C3, S3v = -S3): contract k3 -> (k2, c)
-    C3i, S3i = c3i_ref[...], s3i_ref[...]
-    Br = dot(Xr, C3i) + dot(Xi, S3i)
-    Bi = dot(Xi, C3i) - dot(Xr, S3i)
-    # conj mid twiddle (same tables, mirrored combine)
-    Br, Bi = Br * t2r + Bi * t2i, Bi * t2r - Br * t2i
-    # inverse stage 2': contract k2 -> (b, c); the conj stage-1 twiddles
-    # are applied by XLA after the call (fused into the final-stage
-    # matmul prologue), mirroring the forward side
-    Ar = dot(C2, Br) + dot(S2, Bi)
-    Ai = dot(C2, Bi) - dot(S2, Br)
-
-    or_ref[0] = Ar
-    oi_ref[0] = Ai
-
-
-@partial(jax.jit, static_argnames=("nfft", "factors", "prec", "interpret"))
-def _analytic_factored_slab(x, *, nfft, factors, prec, interpret):
-    """Analytic signal via the factored chain with the middle section as
-    ONE Pallas dispatch (see :func:`_hilb_slab_kernel`).  Same math as
-    :func:`_analytic_factored` (asserted in tests); the inverse middle
-    lands slabs in (b, c) layout, so the final output is naturally ordered
-    and the deferred flip disappears too."""
-    n1, n2, n3 = factors
-    P = {"highest": jax.lax.Precision.HIGHEST,
-         "bf16x3": jax.lax.Precision.HIGH,
-         "bf16": jax.lax.Precision.DEFAULT}[prec]
-    C1, S1 = _dft_tables(n1, -1.0)
-    X = x.reshape(n1, n2 * n3).astype(jnp.float32)
-    Ar = jnp.dot(C1, X, precision=P).reshape(n1, n2, n3)
-    Ai = jnp.dot(S1, X, precision=P).reshape(n1, n2, n3)
-
-    k1 = np.arange(n1)
-    ang_b = (2.0 * np.pi / nfft) * n3 * np.outer(k1, np.arange(n2))
-    ang_c = (2.0 * np.pi / nfft) * np.outer(k1, np.arange(n3))
-    ang2t = ((2.0 * np.pi / (n2 * n3))
-             * np.outer(np.arange(n2), np.arange(n3)))   # (k2, c)
-    f32 = np.float32
-    # stage-1 twiddles W_N^{(b n3 + c) k1}: applied here (XLA fuses the
-    # elementwise complex rotation into the stage-1 matmul epilogue) —
-    # their per-k1 (1, n2)/(1, n3) kernel blocks were Mosaic-illegal
-    tbr = jnp.asarray(f32(np.cos(ang_b)))[:, :, None]
-    tbi = jnp.asarray(f32(-np.sin(ang_b)))[:, :, None]
-    tcr = jnp.asarray(f32(np.cos(ang_c)))[:, None, :]
-    tci = jnp.asarray(f32(-np.sin(ang_c)))[:, None, :]
-    Ar, Ai = Ar * tbr - Ai * tbi, Ar * tbi + Ai * tbr
-    Ar, Ai = Ar * tcr - Ai * tci, Ar * tci + Ai * tcr
-    n = np.arange(n2)
-    a2 = (2.0 * np.pi / n2) * np.outer(n, n)
-    n = np.arange(n3)
-    a3 = (2.0 * np.pi / n3) * np.outer(n, n)
-    C3np, S3np = f32(np.cos(a3)), f32(-np.sin(a3))
-    nyq = (nfft + 1) // 2 if nfft % 2 else nfft // 2
-    # even n3: the mask survivor set is exactly k3 < n3/2 (plus the lone
-    # Nyquist bin, restored below), so stage 3/3' tables are pre-sliced
-    # to half width — see the kernel docstring
-    h3 = n3 // 2 if n3 % 2 == 0 else n3
-    tables = [f32(np.cos(a2)), f32(-np.sin(a2)),
-              C3np[:, :h3], S3np[:, :h3],        # forward: (n3, h3)
-              C3np[:h3, :], S3np[:h3, :],        # inverse: (h3, n3)
-              f32(np.cos(ang2t)), f32(-np.sin(ang2t))]
-
-    slab = lambda k: (k, 0, 0)  # noqa: E731
-    zero2 = lambda k: (0, 0)    # noqa: E731
-    Br, Bi = pl.pallas_call(
-        partial(_hilb_slab_kernel, n1=n1, n2=n2, n3=n3, h3=h3, nyq=nyq,
-                prec=prec),
-        grid=(n1,),
-        in_specs=[
-            pl.BlockSpec((1, n2, n3), slab),
-            pl.BlockSpec((1, n2, n3), slab),
-            pl.BlockSpec((n2, n2), zero2),
-            pl.BlockSpec((n2, n2), zero2),
-            pl.BlockSpec((n3, h3), zero2),
-            pl.BlockSpec((n3, h3), zero2),
-            pl.BlockSpec((h3, n3), zero2),
-            pl.BlockSpec((h3, n3), zero2),
-            pl.BlockSpec((n2, n3), zero2),
-            pl.BlockSpec((n2, n3), zero2),
-        ],
-        out_specs=[pl.BlockSpec((1, n2, n3), slab)] * 2,
-        out_shape=[jax.ShapeDtypeStruct((n1, n2, n3), jnp.float32)] * 2,
-        cost_estimate=pl.CostEstimate(
-            flops=int(2 * (8 * n3 + 8 * h3) * n1 * n2 * max(n2, n3)),
-            bytes_accessed=int(16 * n1 * n2 * n3), transcendentals=0),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(Ar, Ai, *map(jnp.asarray, tables))
-
-    # conj stage-1 twiddles (mirroring the forward pre-twiddle; XLA fuses
-    # the rotation into the final-stage matmul prologue)
-    Br, Bi = Br * tcr + Bi * tci, Bi * tcr - Br * tci
-    Br, Bi = Br * tbr + Bi * tbi, Bi * tbr - Br * tbi
-
-    s = np.float32(1.0 / nfft)
-    A2r = Br.reshape(n1, n2 * n3)
-    A2i = Bi.reshape(n1, n2 * n3)
-    # final stage: contract k1 (C1v = C1, S1v = -S1) -> natural time order
-    zr = (jnp.dot(C1, A2r, precision=P)
-          + jnp.dot(S1, A2i, precision=P)) * s
-    zi = (jnp.dot(C1, A2i, precision=P)
-          - jnp.dot(S1, A2r, precision=P)) * s
-    zr = zr.reshape(nfft)
-    zi = zi.reshape(nfft)
-    if n3 % 2 == 0:
-        # restore the lone unit-gain Nyquist bin the half-width kernel
-        # drops: X[nyq] = sum_n x[n] (-1)^n (real for real input), and its
-        # ifft contribution is X[nyq]/N * (-1)^n — a closed-form rank-1
-        # term XLA fuses into the epilogue (zi is untouched: the Nyquist
-        # basis vector is real)
-        alt = 1.0 - 2.0 * (jnp.arange(nfft, dtype=jnp.int32)
-                           % 2).astype(jnp.float32)
-        xnyq = jnp.sum(x.astype(jnp.float32) * alt)
-        zr = zr + (xnyq * s) * alt
-    return zr, zi
-
-
-def analytic_flops_bytes(nfft, factors=None, prec="bf16x3",
-                         variant="xla-mid"):
-    """(dispatched MXU FLOPs, approx HBM bytes) of the analytic chain.
-
-    FLOPs: the forward chain is 2 matmuls of size ``n1`` plus 4 einsums of
-    size ``n2`` and 4 of ``n3`` (each ``2*n*nfft`` FLOPs); the inverse
-    mirrors with 4 matmuls per stage -> ``nfft*(12 n1 + 16 n2 + 16 n3)``
-    logical FLOPs, times the precision pass count (bf16x3 = 3).
-    ``variant='slab'`` runs the 8 stage-3/3' matmuls at half width for
-    even ``n3`` (``16 n3 -> 12 n3``) — the analytic mask's survivor set
-    is exactly the lower half-spectrum.
-
-    Bytes: the 6 matmul stages each read and write the full (re, im) pair
-    (elementwise twiddles fuse into neighbors) -> ``~24 * 4 * nfft`` plus
-    the mask and the envelope/phase epilogue (~4 more passes).  This is
-    the model the bench quotes against the HBM roofline — the chain is
-    bandwidth-bound at production sizes.
-    """
-    if factors is None:
-        from .ops.mxu_fft import balanced3_factorization
-        factors = balanced3_factorization(int(nfft))
-    if factors is None:
-        return None, None
-    n1, n2, n3 = factors
-    from .ops.precision import KERNEL_PASSES
-    passes = KERNEL_PASSES[prec]
-    w3 = 12.0 if (variant == "slab" and n3 % 2 == 0) else 16.0
-    flops = passes * nfft * (12.0 * n1 + 16.0 * n2 + w3 * n3)
-    nbytes = (24 + 4) * 4.0 * nfft
-    return flops, nbytes
-
-
-@partial(jax.jit, static_argnames=("nfft", "axis", "prec", "slab"))
-def _envelope_phase_dev(u, *, nfft, axis, prec=None, slab=None):
-    import os
-    from .ops.mxu_fft import balanced3_factorization
-    from .ops.precision import resolve_kernel_precision
-
-    if slab is None:
-        # slab-fused middle section: default ON (verified on v5e, round 5:
-        # rel-err 3.9e-5 vs the unfused chain, 31% faster at 2^24);
-        # PYFFT_HILB_SLAB=0 opts out
-        slab = os.environ.get("PYFFT_HILB_SLAB", "1") == "1"
-    if jax.default_backend() == "cpu":
-        z = _hilbert_xla(u, nfft=nfft, axis=axis)
-        zr, zi = jnp.real(z), jnp.imag(z)
-    else:
-        factors = (balanced3_factorization(int(nfft))
-                   if u.ndim == 1 and axis in (-1, 0)
-                   and u.shape[-1] == nfft else None)
-        if factors is not None:
-            # Every slab BlockSpec now equals its array dims (twiddles are
-            # hoisted to XLA), so Mosaic legality no longer depends on
-            # n2/n3 alignment — (64, 64, 64) compiles and verifies
-            # (TPU_KERNELS.json `hilbert_slab_64`).  The gate that remains
-            # is a PERF gate, measured on v5e (scripts/perf_slab_r5.py):
-            # lane-aligned factors win (2^24 (256,256,256): 5.2 vs 7.6 ms;
-            # 2^23 (128,256,256): 2.10 vs 2.22 ms) but sub-lane factors
-            # pad every (8,128) f32 tile and under-fill the MXU, losing
-            # (2^18 (64,64,64): 0.32 vs 0.27 ms) — those fall back to the
-            # unfused factored chain.
-            slab_ok = slab and factors[1] % 128 == 0 and factors[2] % 128 == 0
-            impl = _analytic_factored_slab if slab_ok else _analytic_factored
-            kw = {"interpret": False} if slab_ok else {}
-            zr, zi = impl(u, nfft=int(nfft), factors=factors,
-                          prec=resolve_kernel_precision(prec), **kw)
-        else:
-            zr, zi = _hilbert_mxu(u, nfft=nfft, axis=axis)
+@partial(jax.jit, static_argnames=("nfft", "axis"))
+def _envelope_phase_dev(u, *, nfft, axis):
+    z = _hilbert_xla(u, nfft=nfft, axis=axis)
+    zr, zi = jnp.real(z), jnp.imag(z)
     return jnp.sqrt(zr * zr + zi * zi), jnp.arctan2(zi, zr)
 
 
@@ -490,8 +226,7 @@ def envelope_phase(uin, nfft=None, axes=-1, mesh=None):
     reference's demod chains actually consume (``Doppler.py:214-225``
     I/Q magnitude, ``hilbert`` docstring's instantaneous amplitude/phase)
     — without ever materializing the complex analytic signal on the host
-    (a 2x transfer saving, and the TPU backend cannot ship complex
-    buffers at all).
+    (a 2x transfer saving).
 
     With ``mesh`` (a ``jax.sharding.Mesh`` with a ``'t'`` axis) the
     transform runs distributed (:func:`parallel.fft.hilbert_sharded`) and

@@ -1,15 +1,15 @@
-"""Numerical Laplace transform on a sigma grid (TPU-native).
+"""Numerical Laplace transform on a sigma grid.
 
 Role of the reference ``laplace.py``: a brute-force bilateral Laplace
 transform evaluated as a family of exponentially-weighted Fourier transforms
 over a grid of real parts ``sigma`` (reference ``laplace_1d``,
 ``laplace.py:85-113``).
 
-TPU-first redesign: the reference's Python loop over the sigma grid becomes
+Batched redesign: the reference's Python loop over the sigma grid becomes
 one batched weighted-rfft: build the normalized weight matrix
 ``W[s, m] = exp(sigma_s (N-1-m)) / sum_n exp(sigma_s n)`` on the host, then a
 single ``(nsigma, N)`` batched rfft on the device — the sigma axis is a pure
-batch dimension that feeds the MXU.
+batch dimension.
 """
 from __future__ import annotations
 

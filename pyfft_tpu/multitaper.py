@@ -4,8 +4,7 @@ The reference vendors the DPSS taper generator (``windows.py:1986-2245``)
 but never builds an estimator on it (SURVEY §5.7) — completing that is a
 natural capability of the framework: the ``K`` tapers are a *batch axis*,
 so the whole estimate is one device call (tapered segments ->
-batched rFFT -> eigenvalue-weighted average), mapping perfectly onto the
-MXU-batched transform stack.
+batched rFFT -> eigenvalue-weighted average).
 
 - :func:`multitaper_psd`: auto-PSD with 'unity', 'eigen', or Thomson
   'adaptive' taper weighting (Percival & Walden eq. 368-370 iteration);
@@ -67,8 +66,6 @@ def multitaper_psd(x, fs=1.0, NW=4.0, K=None, weighting="adaptive",
         K = max(2, int(2 * NW - 1))
     tapers, lam = _eigvals_tapers(n, NW, K)
     backend = resolve_fft_backend(fft_backend)
-    if backend == "pallas":
-        backend = "mxu"
     nny = get_nnyquist(n)
 
     Xr, Xi = _tapered_ffts(jnp.asarray(x), jnp.asarray(tapers),
@@ -113,8 +110,6 @@ def multitaper_csd(x, y, fs=1.0, NW=4.0, K=None, fft_backend=None):
         K = max(2, int(2 * NW - 1))
     tapers, lam = _eigvals_tapers(n, NW, K)
     backend = resolve_fft_backend(fft_backend)
-    if backend == "pallas":
-        backend = "mxu"
     nny = get_nnyquist(n)
 
     Xr, Xi = map(np.asarray, _tapered_ffts(jnp.asarray(x),

@@ -6,7 +6,7 @@ from S. J. Orfanidis, *Introduction to Signal Processing*, Prentice-Hall,
 1996 — formulas 11.3.4/11.3.7 (notch) and 11.3.19/11.3.21 (peak).
 
 Design is host-side NumPy; application goes through the framework's IIR
-scan (:func:`pyfft_tpu.filters.filtfilt`) or, for streaming on TPU, the
+scan (:func:`pyfft_tpu.filters.filtfilt`) or, for streaming, the
 FIR overlap-save path via :func:`pyfft_tpu.filters.iir_to_fir`.
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Device transform/kernels layer.
 
-- :mod:`pyfft_tpu.ops.mxu_fft` — real-arithmetic matmul-DFT FFTs (the TPU
-  transform backend; no complex dtype required).
+- :mod:`pyfft_tpu.ops.mxu_fft` — real-arithmetic matmul-DFT FFTs (the
+  ``fft_backend='mxu'`` path; no complex dtype required).
 """
 from . import mxu_fft
 from .mxu_fft import fft_pair, ifft_pair, rfft_pair, irfft_pair, dft_matrices

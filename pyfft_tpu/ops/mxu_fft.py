@@ -1,12 +1,11 @@
-"""Real-arithmetic FFTs built on MXU matmuls (the TPU transform backend).
+"""Real-arithmetic FFTs built on dense DFT matmuls (``fft_backend='mxu'``).
 
 Why this exists
 ---------------
-The TPU backend in this environment exposes **no complex dtype at all** —
-``jnp.fft.*`` and even complex multiplies fail with ``UNIMPLEMENTED``.  And
-even where XLA:TPU supports complex FFTs, the systolic MXU is fed best by
-matrix multiplies.  So the transform layer is designed as a *real-valued*
-Cooley-Tukey decomposition where every butterfly stage is a dense DFT matmul:
+The framework was first built for a backend with no complex dtype, so this
+transform layer is a *real-valued* Cooley-Tukey decomposition where every
+butterfly stage is a dense DFT matmul.  On complex-capable backends the
+default path is ``jnp.fft``; this one is reached only on request:
 
 - complex data travels as a ``(re, im)`` pair of real arrays (``im=None``
   encodes an exactly-real array, so the first stage of an rfft does half the
@@ -15,19 +14,17 @@ Cooley-Tukey decomposition where every butterfly stage is a dense DFT matmul:
   / Bailey decomposition): columns-DFT (matmul), twiddle (elementwise, fused
   by XLA), rows-DFT (matmul), index transpose;
 - leaves (``N <= leaf``) are direct DFT matmuls against constant cos/sin
-  matrices — dense ``(batch, N) @ (N, N)`` contractions that map straight
-  onto the 128x128 MXU.
+  matrices — dense ``(batch, N) @ (N, N)`` contractions.
 
 This replaces the role of ``numpy.fft`` as the reference's L1 transform
 backend (reference ``fft_analysis.py:386``, ``dft.py:191`` pedagogical
-butterfly) with an MXU-native design.  Accuracy: matmul stages run with
+butterfly) with a matmul design.  Accuracy: matmul stages run with
 ``precision='highest'`` by default (float32 carries ~1e-6 relative error up
 to N ~ 1e6, log-depth error growth like an FFT).
 
-FLOP shape: cost per level is ``4 * B * N * (N1 + N2)`` MXU MACs instead of
-the scalar butterfly's ``5 N log2 N`` VPU flops — far more arithmetic, but
-it runs at MXU rates and needs no data-dependent shuffles, which is the
-right trade on TPU.
+FLOP shape: cost per level is ``4 * B * N * (N1 + N2)`` matmul MACs instead
+of the scalar butterfly's ``5 N log2 N`` flops — far more arithmetic, run
+at matrix-unit rates with no data-dependent shuffles.
 """
 from __future__ import annotations
 
@@ -119,11 +116,10 @@ def balanced3_factorization(N: int, maxf: int = 512):
 # (two power-of-two FFTs) instead of a direct O(p^2) DFT matmul.
 _BLUESTEIN_THRESHOLD = 512
 
-# rfft even/odd packing is a lane-stride-2 de-interleave — cheap for the
-# batched segment sizes of the Welch/overlap-save paths (measured 15%
-# faster than slice-after-full at (512, 2048) on v5e) but a pathological
-# relayout for long 1-D transforms (measured 50x SLOWER at 2^23).  The
-# packed path is therefore gated on the transform length.
+# rfft even/odd packing is a stride-2 de-interleave — cheap for the
+# batched segment sizes of the Welch/overlap-save paths but a costly
+# relayout for long 1-D transforms.  The packed path is therefore gated on
+# the transform length.
 _RFFT_PACK_MAX = 1 << 15
 
 
@@ -235,7 +231,7 @@ def _fft_last(re, im, N, leaf, precision, dtype):
         return _bluestein_last(re, im, N, leaf, precision, dtype)
     fac = good_leaf_factorization(N, leaf)
     if fac is None:
-        # moderate prime length: direct matmul (MXU-resident)
+        # moderate prime length: direct matmul
         return _dft_last(re, im, N, precision, dtype)
     n1, n2 = fac
 

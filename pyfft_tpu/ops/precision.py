@@ -1,64 +1,30 @@
-"""Matmul precision policies for the MXU kernel tier.
+"""Matmul precision policy for the real-pair matmul-DFT tier.
 
-The TPU MXU multiplies in bfloat16 and accumulates in float32; float32
-matmuls are emulated by multiple bf16 passes.  XLA exposes this as
-``precision=`` (DEFAULT=1 pass, HIGH=3, HIGHEST=6), but Mosaic/Pallas
-kernels only support DEFAULT and HIGHEST — so the 3-pass compromise
-(~1e-7..1e-5 relative error on O(1e3)-long contractions, 2x faster than
-HIGHEST) is provided here as an explicit split-product:
+The matmul DFTs (:mod:`pyfft_tpu.ops.mxu_fft`, the factored analytic chain
+in :mod:`pyfft_tpu.hilbert`) take one of three precision names, mapped to
+``jax.lax.Precision`` where the contraction is built:
 
-    a @ b  ~=  a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+- ``'highest'`` — full float32 products (``Precision.HIGHEST``);
+- ``'bf16x3'``  — three-pass bf16 compensated products (``Precision.HIGH``);
+- ``'bf16'``    — one bf16 pass (``Precision.DEFAULT``).
 
-with ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (the dropped lo*lo term is
-O(2^-16) relative).  This is exactly the decomposition XLA uses for HIGH.
-
-``dot_bf16x3`` is usable inside Pallas kernels and in regular jitted code.
+The default is ``'highest'`` on every platform: on an NVIDIA GPU a float32
+product with no precision stated runs in TF32, which keeps about three
+decimal digits — too few for spectral estimation.
 """
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
+__all__ = ["KERNEL_PRECISIONS", "resolve_kernel_precision"]
 
-__all__ = ["split_bf16", "dot_bf16x3", "KERNEL_PRECISIONS",
-           "KERNEL_PASSES", "resolve_kernel_precision"]
-
-#: precision names accepted by the kernel tier
+#: precision names accepted by the matmul-DFT tier
 KERNEL_PRECISIONS = ("highest", "bf16x3", "bf16")
-
-#: MXU passes per logical matmul at each kernel precision — the single
-#: source of truth for dispatched-FLOP accounting (bf16x6 emulates f32)
-KERNEL_PASSES = {"highest": 6, "bf16x3": 3, "bf16": 1}
 
 
 def resolve_kernel_precision(precision=None) -> str:
-    """None -> fast-and-accurate on TPU, exact-ish elsewhere.
-
-    bf16x3 carries ~1e-5 worst-case relative error on long contractions —
-    indistinguishable from float32 FFT round-off for spectral estimation —
-    at half the MXU passes of HIGHEST.  On CPU (tests / interpret mode)
-    float32 matmuls are native, so HIGHEST costs nothing.
-    """
+    """None -> ``'highest'``; a known name passes through; else ValueError."""
     if precision in KERNEL_PRECISIONS:
         return precision
     if precision is not None:
         raise ValueError(f"unknown kernel precision {precision!r}; "
                          f"expected one of {KERNEL_PRECISIONS} or None")
-    return "bf16x3" if jax.default_backend() != "cpu" else "highest"
-
-
-def split_bf16(a):
-    """``a = hi + lo`` with both parts bf16-representable; returns (hi, lo)."""
-    hi = a.astype(jnp.bfloat16)
-    lo = (a - hi.astype(a.dtype)).astype(jnp.bfloat16)
-    return hi, lo
-
-
-def dot_bf16x3(a, b_hi, b_lo):
-    """3-pass bf16 matmul with f32 accumulation (~XLA HIGH precision).
-
-    ``a`` is float32; ``b`` arrives pre-split (constants are split once,
-    host-side).  Works inside Pallas kernels (plain ``jnp.dot``).
-    """
-    a_hi, a_lo = split_bf16(a)
-    d = lambda p, q: jnp.dot(p, q, preferred_element_type=jnp.float32)
-    return d(a_hi, b_hi) + d(a_hi, b_lo) + d(a_lo, b_hi)
+    return "highest"

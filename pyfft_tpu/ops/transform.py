@@ -3,7 +3,7 @@
 Small analysis modules (Laplace, correlation, Doppler, ...) need plain
 "numpy-in, numpy-out" FFTs that run on whatever device is present.  These
 helpers dispatch to ``jnp.fft`` on complex-capable backends and to the
-real-pair MXU stack (:mod:`pyfft_tpu.ops.mxu_fft`) on TPU, always returning
+real-pair matmul stack (:mod:`pyfft_tpu.ops.mxu_fft`) elsewhere, always returning
 NumPy arrays on the host.  Heavy pipelines (Welch, STFT, FIR) have their own
 fused jitted cores and do not go through here.
 """

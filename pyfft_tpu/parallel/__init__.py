@@ -9,8 +9,7 @@ from .fft import (fft_sharded, ifft_sharded, rfft_sharded, irfft_sharded,
                   hilbert_sharded,
                   axis_swap, four_step_factor)
 from .runtime import (init_distributed, make_host_mesh, scaling_report,
-                      measure_scaling, audit_collectives, project_scaling,
-                      project_scaling_paths)
+                      measure_scaling, audit_collectives, audit_mesh_paths)
 from .stft import stft_sharded, specgram_sharded
 
 __all__ = ["make_mesh", "shard_map", "P", "Mesh", "NamedSharding",
@@ -19,5 +18,5 @@ __all__ = ["make_mesh", "shard_map", "P", "Mesh", "NamedSharding",
            "hilbert_sharded",
            "axis_swap", "four_step_factor",
            "init_distributed", "make_host_mesh", "scaling_report",
-           "measure_scaling",
+           "measure_scaling", "audit_collectives", "audit_mesh_paths",
            "stft_sharded", "specgram_sharded"]

@@ -1,8 +1,8 @@
 """Distributed FFT: four-step decomposition over the device mesh (TP).
 
 The reference computes every transform single-threaded through
-``numpy.fft`` (the largest is 2^21 points, Doppler.py:171); a single TPU
-chip covers those sizes trivially.  This module is the SURVEY §2.3 "TP /
+``numpy.fft`` (the largest is 2^21 points, Doppler.py:171); a single
+device covers those sizes trivially.  This module is the SURVEY §2.3 "TP /
 intra-op tensor parallelism" row: transforms whose working set exceeds one
 chip's HBM (or whose latency must be split across a slice) factor into
 per-device radix stages with all-to-all transposes between them — the
@@ -23,9 +23,9 @@ Stage map (each device holds a contiguous 1/D block of the time axis):
     6. local length-N2 FFT along n2
     7. transpose + all-to-all -> standard-order output, contiguous on k
 
-Local transforms go through :mod:`pyfft_tpu.ops.mxu_fft` real-pair matmul
-FFTs (TPU: no complex support on the backend) or ``jnp.fft`` (CPU/GPU),
-selected exactly like the single-chip pipeline.
+Local transforms go through ``jnp.fft`` (cuFFT on the GPU, the default) or
+the :mod:`pyfft_tpu.ops.mxu_fft` real-pair matmul FFTs, selected exactly
+like the single-device pipeline.
 
 Also exported: :func:`axis_swap` — the bare Ulysses-style re-shard
 (all-to-all that trades which array axis is partitioned), usable on its own
@@ -240,13 +240,8 @@ def _run_pair(xr, xi, mesh, axis_name, backend, inverse):
     return _fourstep_run(xr, xi, mesh, axis_name, backend, inverse)
 
 
-def _resolve_pair_backend(backend):
-    backend = resolve_fft_backend(backend)
-    return "mxu" if backend == "pallas" else backend
-
-
 def _run(x, mesh, axis_name, backend, inverse):
-    backend = _resolve_pair_backend(backend)
+    backend = resolve_fft_backend(backend)
     x = np.asarray(x) if not isinstance(x, jax.Array) else x
     if np.iscomplexobj(x):
         xr, xi = np.real(x), np.imag(x)
@@ -355,7 +350,7 @@ def hilbert_sharded(x, mesh, axis_name="t", backend=None):
     distributed inverse — everything stays a sharded real pair on device.
     Returns ``(zr, zi)`` sharded along ``axis_name``.
     """
-    backend = _resolve_pair_backend(backend)
+    backend = resolve_fft_backend(backend)
     n = np.shape(x)[-1]
     yr, yi = fft_sharded(x, mesh, axis_name, backend)
 

@@ -4,7 +4,8 @@ The framework's scaling model (SURVEY §2.3): a 2-D logical mesh with a
 channel axis (``'ch'``, embarrassingly-parallel shots/channels — DP) and a
 time axis (``'t'``, sequence parallelism with halo exchange — SP/CP).
 Welch averages reduce with ``psum`` over ``'t'``; segment/FIR halos move
-with ``ppermute`` along ``'t'``; everything rides ICI within a slice.
+with ``ppermute`` along ``'t'``.  The GPUs of one host are joined all to
+all, so the mesh shape follows the algorithm alone.
 """
 from __future__ import annotations
 
@@ -12,24 +13,16 @@ import numpy as np
 import jax
 from jax.sharding import Mesh, PartitionSpec, NamedSharding
 
-try:  # jax>=0.4.35 exposes shard_map at the top level
-    from jax import shard_map as _shard_map_fn
-
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=False):
-        return _shard_map_fn(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=check_vma)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_old
-
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=False):
-        return _shard_map_old(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_rep=check_vma)
-
-
 P = PartitionSpec
 
 __all__ = ["make_mesh", "shard_map", "P", "Mesh", "NamedSharding",
            "device_counts"]
+
+
+def shard_map(f, mesh, in_specs, out_specs, check_vma=False):
+    """``jax.shard_map`` with the framework's default ``check_vma=False``."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=check_vma)
 
 
 def device_counts():

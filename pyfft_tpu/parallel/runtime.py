@@ -1,18 +1,21 @@
-"""Multi-host runtime bootstrap (SURVEY §5.8).
+"""Multi-process runtime bootstrap (SURVEY §5.8).
 
-The reference is a single NumPy process; the TPU framework's communication
+The reference is a single NumPy process; this framework's communication
 backend is the JAX distributed runtime: ``jax.distributed.initialize()``
-per host, a ``('host', 'ch', 't')`` mesh whose leading axis spans hosts
-(collectives over it ride DCN; the inner axes stay within a slice on ICI).
+per process, a ``('host', 'ch', 't')`` mesh whose leading axis spans
+processes (collectives over it cross the host network; the inner axes stay
+within one host, whose GPUs are joined all to all by NVLink).
 
 - :func:`init_distributed`: idempotent wrapper over
-  ``jax.distributed.initialize`` (env-driven on TPU pods, explicit
-  coordinator for CPU/GPU clusters);
+  ``jax.distributed.initialize`` (explicit coordinator address, process
+  count and id);
 - :func:`make_host_mesh`: the three-axis mesh with hosts outermost, so
-  channel-DP crosses hosts (embarrassingly parallel, DCN-tolerant) while
-  time-axis halos (ppermute) and segment psums stay intra-host on ICI;
+  channel-DP crosses hosts (embarrassingly parallel) while time-axis halos
+  (ppermute) and segment psums stay within a host;
 - :func:`scaling_report`: per-axis device counts + the collective->link
-  mapping, for the observability log.
+  mapping, for the observability log;
+- :func:`audit_collectives`: collective ops and their byte volumes read
+  from compiled HLO.
 """
 from __future__ import annotations
 
@@ -23,8 +26,7 @@ import jax
 from jax.sharding import Mesh
 
 __all__ = ["init_distributed", "make_host_mesh", "scaling_report",
-           "measure_scaling", "audit_collectives", "project_scaling",
-           "project_scaling_paths"]
+           "measure_scaling", "audit_collectives", "audit_mesh_paths"]
 
 _initialized = False
 
@@ -33,9 +35,8 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Initialize the JAX distributed runtime (idempotent).
 
-    On TPU pods all arguments come from the environment; pass them
-    explicitly for CPU/GPU multi-process runs.  Single-process (the common
-    dev case) is a no-op.
+    Pass the coordinator address, process count and process id explicitly
+    for multi-process runs.  Single-process (the common case) is a no-op.
     """
     global _initialized
     if _initialized:
@@ -51,8 +52,9 @@ def init_distributed(coordinator_address=None, num_processes=None,
 
 
 def make_host_mesh(ch=1, t=None):
-    """``('host', 'ch', 't')`` mesh: hosts outermost (DCN), ch/t within a
-    host (ICI).  ``t`` defaults to all remaining local devices."""
+    """``('host', 'ch', 't')`` mesh: hosts outermost (host network), ch/t
+    within a host (NVLink).  ``t`` defaults to all remaining local
+    devices."""
     devices = jax.devices()
     nproc = jax.process_count()
     per_host = len(devices) // nproc
@@ -73,13 +75,13 @@ def scaling_report(mesh, measure=False, **measure_kw):
         "axes": sizes,
         "devices": int(np.prod(list(sizes.values()))),
         "collectives": {
-            "psum(welch average)": "ICI ('t')"
+            "psum(welch average)": "intra-host ('t')"
             if "t" in sizes else "n/a",
-            "ppermute(segment/FIR halo)": "ICI ('t')"
+            "ppermute(segment/FIR halo)": "intra-host ('t')"
             if "t" in sizes else "n/a",
-            "all_to_all(four-step FFT)": "ICI ('t')"
+            "all_to_all(four-step FFT)": "intra-host ('t')"
             if "t" in sizes else "n/a",
-            "all_gather(final spectra)": "DCN ('host')"
+            "all_gather(final spectra)": "inter-host ('host')"
             if "host" in sizes else "n/a",
         },
     }
@@ -133,7 +135,7 @@ def measure_scaling(nt=1 << 20, nch=4, nwins=1024, iters=5, shard_counts=None,
 
 
 # --------------------------------------------------------------------------- #
-# HLO collective audit + projected multi-host scaling (BASELINE >=85%@2 hosts)
+# HLO collective audit
 # --------------------------------------------------------------------------- #
 
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s32": 4, "u32": 4,
@@ -145,16 +147,17 @@ def audit_collectives(compiled_text):
     """Parse post-SPMD compiled HLO for collective ops and payload bytes.
 
     Returns rows ``{'op', 'shapes', 'bytes'}`` — the per-device payload of
-    each collective taken from its result shape(s).  This is the auditable
-    ground truth for the scaling projection: the byte volumes come from the
-    compiler's own partitioned module, not from a hand model.
+    each collective taken from its result shape(s).  The byte volumes come
+    from the compiler's own partitioned module, not from a hand model.
+    An asynchronous collective (``*-start`` / ``*-done``, as the GPU
+    backend emits) is counted once, from its ``-done`` result.
     """
     import re
     rows = []
     pat = re.compile(
         r"=\s*([^=]*?)\s*"
         r"(all-reduce|collective-permute|all-to-all|all-gather|"
-        r"reduce-scatter)\(")
+        r"reduce-scatter)(?:-done)?\(")
     shape_pat = re.compile(r"\b([a-z]+\d+|pred)\[([\d,]*)\]")
     for line in compiled_text.splitlines():
         m = pat.search(line)
@@ -172,291 +175,54 @@ def audit_collectives(compiled_text):
     return rows
 
 
-def project_scaling(nt=1 << 24, nch=8, nwins=4096, windowoverlap=0.5,
-                    ntaps=129, hosts=2, chips_per_host=4,
-                    per_chip_samples_per_s=None, kind="v5e",
-                    fft_backend="mxu"):
-    """Projected ``hosts``-host scaling efficiency for the Welch+FIR chain.
+def audit_mesh_paths(mesh, *, nt, nch, nwins, ntaps, fft_n=None):
+    """Collectives of the sharded steps, compiled for ``mesh`` but not run.
 
-    Hardware with more than one chip is not reachable in this environment,
-    so the BASELINE ">=85% efficiency at 2 hosts" target is made *auditable*
-    instead of measured: the sharded steps are compiled over a
-    ``hosts*chips_per_host``-device mesh, every collective op and its byte
-    volume is extracted from the partitioned HLO (:func:`audit_collectives`),
-    and the communication time is modeled against the book link bandwidths
-    (:func:`pyfft_tpu.utils.profiling.interconnect_peaks`):
-
-    - ``collective-permute`` (segment/FIR halo): all neighbor pairs transfer
-      in parallel; the host-boundary pair rides DCN and sets the critical
-      path -> ``t = bytes / BW_dcn``;
-    - ``all-reduce`` (Welch psum): hierarchical ring — intra-host reduce +
-      broadcast over ICI (``2 B (L-1)/L / BW_ici``) plus the inter-host
-      exchange over DCN (``2 B (H-1)/H / BW_dcn``);
-    - compute time per chip from the *measured* single-chip throughput
-      (``per_chip_samples_per_s``; defaults to the BENCH_FULL headline).
-
-    Efficiency bounds: ``no_overlap = Tc / (Tc + sum(Tcomm))`` (every
-    collective exposed) and ``overlapped = Tc / max(Tc, Tcomm)`` (XLA hides
-    communication behind compute).  Returns the full model as a dict so
-    BASELINE.md can state it reproducibly.
+    Lowers the time-sharded Welch step (``nch`` channels plus the
+    reference, ``nt`` samples, Hann segments of ``nwins`` at 50 %
+    overlap), the time-sharded overlap-save FIR step (``ntaps`` taps) and,
+    with ``fft_n``, the four-step FFT of ``fft_n`` points, from abstract
+    sharded inputs, and returns ``{path: audit_collectives rows}`` for
+    ``'welch'``, ``'fir'`` and ``'fft4step'``.
     """
-    import jax as _jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
     from .. import segmentation as seg
-    from ..utils.profiling import interconnect_peaks
-    from .mesh import make_mesh
-    from .welch import _welch_sharded_jit, _MeshBox, plan_shard_segments
-    from .fir import _fir_sharded_jit
     from ..filters import _os_plan
-
-    ndev = hosts * chips_per_host
-    if len(_jax.devices()) < ndev:
-        raise RuntimeError(
-            f"projection needs {ndev} (virtual) devices; run under "
-            f"JAX_PLATFORMS=cpu with xla_force_host_platform_device_count")
-    if per_chip_samples_per_s is None:
-        import json
-        import os
-        here = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        per_chip_samples_per_s = 1.0e10
-        try:
-            with open(os.path.join(here, "BENCH_FULL.json")) as f:
-                for row in json.load(f):
-                    if row.get("config") == 0:
-                        per_chip_samples_per_s = row["samples_per_s"]
-        except Exception:
-            pass
-
-    mesh = make_mesh(ch=1, t=ndev, devices=_jax.devices()[:ndev])
-    plan = seg.plan_segments(nt, nwins=nwins, windowoverlap=windowoverlap)
-    win = np.hanning(nwins + 1)[:-1].astype(np.float32)
-    B, M = plan_shard_segments(nt, plan.nwins, plan.hop, plan.navr, ndev)
-
-    xs = _jax.device_put(jnp.zeros(nt, jnp.float32),
-                         NamedSharding(mesh, P("t")))
-    ys = _jax.device_put(jnp.zeros((nch, nt), jnp.float32),
-                         NamedSharding(mesh, P(None, "t")))
-    welch_txt = _welch_sharded_jit.lower(
-        xs, ys, jnp.asarray(win), jnp.float32(1.0), navr=plan.navr,
-        nwins=plan.nwins, hop=plan.hop, nfft=plan.nfft,
-        nnyquist=plan.nnyquist, onesided=True, detrend_style=1,
-        backend=fft_backend, B=B, M=M, mesh_static=_MeshBox(mesh),
-        ntmodel=False, nt_true=nt, cplx=False).compile().as_text()
-
-    nfft_os, hop_os, nblocks = _os_plan(nt // ndev + ntaps - 1, ntaps, None)
-    H = np.zeros(nfft_os // 2 + 1, np.complex128)
-    ysf = _jax.device_put(jnp.zeros((nch, nt), jnp.float32),
-                          NamedSharding(mesh, P(None, "t")))
-    fir_txt = _fir_sharded_jit.lower(
-        ysf, jnp.asarray(H.real, jnp.float32), jnp.asarray(H.imag,
-                                                           jnp.float32),
-        ntaps=ntaps, nfft=nfft_os, hop=hop_os, nblocks=nblocks,
-        backend=fft_backend, mesh_static=_MeshBox(mesh)).compile().as_text()
-
-    rows = audit_collectives(welch_txt) + audit_collectives(fir_txt)
-    ici, dcn = interconnect_peaks(kind)
-
-    halo_bytes = sum(r["bytes"] for r in rows if r["op"] ==
-                     "collective-permute")
-    psum_bytes = sum(r["bytes"] for r in rows if r["op"] == "all-reduce")
-    other_bytes = sum(r["bytes"] for r in rows
-                      if r["op"] not in ("collective-permute", "all-reduce"))
-
-    L, Hn = chips_per_host, hosts
-    t_halo = halo_bytes / (dcn * 1e9)
-    t_psum = (2 * psum_bytes * (L - 1) / L / (ici * 1e9)
-              + 2 * psum_bytes * (Hn - 1) / Hn / (dcn * 1e9))
-    t_other = other_bytes / (dcn * 1e9)
-    t_comm = t_halo + t_psum + t_other
-    t_compute = (nch * nt / ndev) / per_chip_samples_per_s
-
-    return {
-        "workload": {"nt": nt, "nch": nch, "nwins": nwins,
-                     "noverlap": plan.noverlap, "navr": plan.navr,
-                     "ntaps": ntaps},
-        "mesh": {"hosts": hosts, "chips_per_host": chips_per_host,
-                 "t_shards": ndev},
-        "collectives": rows,
-        "bytes": {"halo_ppermute": halo_bytes, "psum_allreduce": psum_bytes,
-                  "other": other_bytes},
-        "link_gbs": {"ici_per_link": ici, "dcn_per_host": dcn,
-                     "kind": kind},
-        "times_s": {"compute_per_chip": t_compute, "halo": t_halo,
-                    "psum": t_psum, "other": t_other, "comm_total": t_comm},
-        "per_chip_samples_per_s": per_chip_samples_per_s,
-        "efficiency": {
-            "no_overlap": t_compute / (t_compute + t_comm),
-            "overlapped": t_compute / max(t_compute, t_comm),
-        },
-        "dcn_sensitivity": _dcn_band(t_compute,
-                                     {"halo": halo_bytes,
-                                      "other": other_bytes},
-                                     psum_bytes, chips_per_host, hosts,
-                                     ici, dcn),
-    }
-
-
-def _dcn_band(t_compute, dcn_bytes, psum_bytes, L, Hn, ici, dcn,
-              factors=(0.5, 1.0, 2.0)):
-    """No-overlap efficiency at ``dcn * factor`` for each factor — the
-    sensitivity band the headline projection quotes (DCN bandwidth is the
-    softest number in the model; halving it bounds the worst case)."""
-    band = {}
-    for f in factors:
-        d_eff = dcn * f
-        t_d = sum(dcn_bytes.values()) / (d_eff * 1e9)
-        t_p = (2 * psum_bytes * (L - 1) / L / (ici * 1e9)
-               + 2 * psum_bytes * (Hn - 1) / Hn / (d_eff * 1e9))
-        band[f"dcn_x{f:g}"] = round(
-            t_compute / (t_compute + t_d + t_p), 4)
-    return band
-
-
-def project_scaling_paths(nt=1 << 24, nch=8, nwins=4096, windowoverlap=0.5,
-                          ntaps=129, hosts=2, chips_per_host=4,
-                          kind="v5e", fft_backend="mxu",
-                          stft_nwins=2048, fft_n=None):
-    """Per-path 2-host scaling projection: the Welch+FIR chain (the
-    headline, :func:`project_scaling`), the sharded STFT (large per-segment
-    output -> host-gather pressure), and the four-step FFT (three
-    all-to-all rounds — the worst collective pattern in the framework).
-
-    Each row carries the audited HLO collective bytes, the modeled
-    communication time, a no-overlap efficiency, and a DCN bandwidth
-    sensitivity band (x0.5 / x1 / x2) — the paths where DCN would actually
-    hurt are exactly the ones whose efficiency must be quoted with error
-    bars.  Compute-time models per path:
-
-    - STFT: the measured single-chip BENCH config-2 rate (samples/s);
-      communication adds the final host-gather of the (navr, nfreq)
-      re+im result, of which the remote hosts' share crosses DCN.
-    - four-step FFT: local work modeled as 10 HBM passes of the per-chip
-      shard (two factored local FFT stages + twiddle + layout swaps) at
-      the measured ~507 GB/s achievable streaming rate; each of the three
-      all-to-alls moves (d-1)/d of every chip's shard, the inter-host
-      fraction ((H-1)/H) through the host NIC.
-    """
-    import json
-    import os
-    import jax as _jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from .. import segmentation as seg
-    from ..utils.profiling import interconnect_peaks
-    from .mesh import make_mesh
-    from .welch import _MeshBox, plan_shard_segments
-
-    ndev = hosts * chips_per_host
-    ici, dcn = interconnect_peaks(kind)
-    L, Hn = chips_per_host, hosts
-    out = {"chain": project_scaling(
-        nt=nt, nch=nch, nwins=nwins, windowoverlap=windowoverlap,
-        ntaps=ntaps, hosts=hosts, chips_per_host=chips_per_host,
-        kind=kind, fft_backend=fft_backend)}
-
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    bench_rows = {}
-    try:
-        with open(os.path.join(here, "BENCH_FULL.json")) as f:
-            bench_rows = {r.get("config"): r for r in json.load(f)}
-    except Exception:
-        pass
-
-    mesh = make_mesh(ch=1, t=ndev, devices=_jax.devices()[:ndev])
-
-    # ---- sharded STFT ----
-    from .stft import _stft_sharded_jit
-    plan2 = seg.plan_segments(nt, nwins=stft_nwins,
-                              windowoverlap=windowoverlap)
-    hop2 = plan2.nwins - plan2.noverlap
-    B2, M2 = plan_shard_segments(nt, plan2.nwins, hop2, plan2.navr, ndev)
-    win2 = np.hanning(stft_nwins + 1)[:-1]
-    sh_t = NamedSharding(mesh, P("t"))
-    xs = _jax.device_put(jnp.zeros(nt, jnp.float32), sh_t)
-    ts = _jax.device_put(jnp.zeros(nt, jnp.float32), sh_t)
-    stft_txt = _stft_sharded_jit.lower(
-        xs, ts, jnp.asarray(win2, jnp.float32), jnp.float32(1.0),
-        jnp.float32(1.0), navr=plan2.navr, nwins=plan2.nwins, hop=hop2,
-        nfft=plan2.nfft, nnyquist=plan2.nnyquist, onesided=True,
-        detrend_style=1, backend=fft_backend, B=B2, M=M2,
-        mesh_static=_MeshBox(mesh), cplx=False).compile().as_text()
-    srows = audit_collectives(stft_txt)
-    s_halo = sum(r["bytes"] for r in srows
-                 if r["op"] == "collective-permute")
-    s_psum = sum(r["bytes"] for r in srows if r["op"] == "all-reduce")
-    s_other = sum(r["bytes"] for r in srows
-                  if r["op"] not in ("collective-permute", "all-reduce"))
-    result_bytes = 8.0 * plan2.navr * plan2.nnyquist     # re+im f32, global
-    gather_dcn = result_bytes * (Hn - 1) / Hn            # remote hosts' share
-    rate2 = bench_rows.get(2, {}).get("samples_per_s", 4.0e9)
-    t_c2 = (nt / ndev) / rate2
-    t_comm2 = (s_halo + s_other + gather_dcn) / (dcn * 1e9) + \
-        (2 * s_psum * (L - 1) / L / (ici * 1e9)
-         + 2 * s_psum * (Hn - 1) / Hn / (dcn * 1e9))
-    out["stft"] = {
-        "workload": {"nt": nt, "nwins": stft_nwins, "navr": plan2.navr,
-                     "nfreq": plan2.nnyquist},
-        "collectives": srows,
-        "bytes": {"halo_ppermute": s_halo, "psum_allreduce": s_psum,
-                  "other": s_other, "result_gather": int(result_bytes),
-                  "result_gather_dcn": int(gather_dcn)},
-        "times_s": {"compute_per_chip": t_c2, "comm_total": t_comm2},
-        "per_chip_samples_per_s": rate2,
-        "efficiency": {
-            "no_overlap": t_c2 / (t_c2 + t_comm2),
-            # same shard count on ONE host: every collective (and the
-            # result assembly) rides ICI — the deployment the numbers say
-            # to prefer for STFT workloads
-            "ici_only": t_c2 / (t_c2 + (s_halo + s_other + 2 * s_psum
-                                        * (ndev - 1) / ndev
-                                        + result_bytes * (ndev - 1) / ndev)
-                                / (ici * 1e9)),
-        },
-        "dcn_sensitivity": _dcn_band(
-            t_c2, {"halo": s_halo, "other": s_other + gather_dcn},
-            s_psum, L, Hn, ici, dcn),
-    }
-
-    # ---- four-step distributed FFT ----
+    from ..spectral import resolve_fft_backend
     from .fft import _fourstep_jit, four_step_factor
-    if fft_n is None:
-        fft_n = (nt // (ndev * ndev)) * ndev * ndev
-    n1, n2 = four_step_factor(fft_n, ndev)
-    xr = _jax.device_put(jnp.zeros(fft_n, jnp.float32), sh_t)
-    xi = _jax.device_put(jnp.zeros(fft_n, jnp.float32), sh_t)
-    fft_txt = _fourstep_jit.lower(
-        xr, xi, n=fft_n, n1=n1, n2=n2, d=ndev, axis_name="t",
-        backend=fft_backend, sign=-1.0, mesh=mesh).compile().as_text()
-    frows = audit_collectives(fft_txt)
-    a2a_bytes = sum(r["bytes"] for r in frows if r["op"] == "all-to-all")
-    f_other = sum(r["bytes"] for r in frows if r["op"] != "all-to-all")
-    shard_bytes = 8.0 * fft_n / ndev                     # re+im f32 per chip
-    hbm_achievable = 507e9          # measured streaming ceiling (BASELINE)
-    t_c3 = 10.0 * shard_bytes / hbm_achievable
-    # inter-host share of each all-to-all rides the host NIC
-    a2a_dcn = a2a_bytes * (Hn - 1) / Hn * L              # per host
-    t_comm3 = (a2a_dcn + f_other) / (dcn * 1e9)
-    out["fft4step"] = {
-        "workload": {"n": fft_n, "n1": n1, "n2": n2, "d": ndev},
-        "collectives": frows,
-        "bytes": {"all_to_all_per_device": a2a_bytes,
-                  "all_to_all_dcn_per_host": int(a2a_dcn),
-                  "other": f_other},
-        "times_s": {"compute_per_chip": t_c3, "comm_total": t_comm3},
-        "compute_model": "10 HBM passes of the per-chip shard at the "
-                         "measured 507 GB/s achievable streaming rate",
-        "efficiency": {
-            "no_overlap": t_c3 / (t_c3 + t_comm3),
-            # all-to-all entirely on ICI (single-host mesh): the four-step
-            # transform is designed to run with d = chips-per-host
-            "ici_only": t_c3 / (t_c3 + a2a_bytes * (ndev - 1) / ndev
-                                / (ici * 1e9)),
-        },
-        "dcn_sensitivity": _dcn_band(
-            t_c3, {"a2a": a2a_dcn, "other": f_other}, 0.0,
-            L, Hn, ici, dcn),
-    }
+    from .fir import _fir_sharded_jit
+    from .welch import _MeshBox, _welch_sharded_jit, plan_shard_segments
+
+    backend = resolve_fft_backend(None)
+    d = mesh.shape["t"]
+    f32 = jnp.float32
+
+    def arg(shape, spec=None):
+        sh = None if spec is None else NamedSharding(mesh, spec)
+        return jax.ShapeDtypeStruct(shape, f32, sharding=sh)
+
+    plan = seg.plan_segments(nt, nwins=nwins, windowoverlap=0.5)
+    B, M = plan_shard_segments(nt, plan.nwins, plan.hop, plan.navr, d)
+    welch = _welch_sharded_jit.lower(
+        arg((nt,), P("t")), arg((nch, nt), P("ch", "t")), arg((nwins,)),
+        arg(()), navr=plan.navr, nwins=plan.nwins, hop=plan.hop,
+        nfft=plan.nfft, nnyquist=plan.nnyquist, onesided=True,
+        detrend_style=1, backend=backend, B=B, M=M,
+        mesh_static=_MeshBox(mesh), ntmodel=False, nt_true=nt, cplx=False)
+    nfft_os, hop_os, nblocks = _os_plan(nt // d + ntaps - 1, ntaps, None)
+    nh = nfft_os // 2 + 1
+    fir = _fir_sharded_jit.lower(
+        arg((nch, nt), P("ch", "t")), arg((nh,)), arg((nh,)), ntaps=ntaps,
+        nfft=nfft_os, hop=hop_os, nblocks=nblocks, backend=backend,
+        mesh_static=_MeshBox(mesh))
+    out = {"welch": audit_collectives(welch.compile().as_text()),
+           "fir": audit_collectives(fir.compile().as_text())}
+    if fft_n is not None:
+        n1, n2 = four_step_factor(fft_n, d)
+        fft = _fourstep_jit.lower(
+            arg((fft_n,), P("t")), arg((fft_n,), P("t")), n=fft_n, n1=n1,
+            n2=n2, d=d, axis_name="t", backend=backend, sign=-1.0,
+            mesh=mesh)
+        out["fft4step"] = audit_collectives(fft.compile().as_text())
     return out

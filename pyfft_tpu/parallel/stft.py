@@ -83,8 +83,7 @@ def _stft_sharded_jit(x, tvec, win, s1, sqrt_enbw, *, navr, nwins, hop,
         gid = g_ids * valid - (1 - valid)        # -1 marks padding rows
         if power:
             # power-spectrogram consumers gather the REAL |X|^2 grid —
-            # half the bytes of the complex pair (the collective-pressure
-            # row the scaling projection flags for STFT-shaped outputs)
+            # half the bytes of the complex pair
             return Xr * Xr + Xi * Xi, tt, gid
         return Xr, Xi, tt, gid
 
@@ -126,8 +125,6 @@ def stft_sharded(x, tvec, win, plan: seg.SegmentPlan, fs, mesh, *,
     ``(tt, freq, P (navr, nfreq) real)``).
     """
     backend = resolve_fft_backend(fft_backend)
-    if backend == "pallas":
-        backend = "mxu"
     tshards = mesh.shape["t"]
     hop = plan.nwins - plan.noverlap
 
@@ -195,8 +192,7 @@ def specgram_sharded(t, s, mesh, wl=512, hanning=True, overlap=True,
     hop ``wl/2`` with overlap, reference time-axis formulas) computed
     where the samples live.  Only the REAL ``(wl, nW)`` power grid is
     assembled on the host — half the bytes of gathering the complex STFT,
-    which the 2-host scaling projection identifies as the dominant cost
-    of spectrogram-shaped outputs.
+    the largest transfer of spectrogram-shaped outputs.
 
     Returns ``(time, fAxis, spectrogram[wl, nW])`` exactly like
     :func:`pyfft_tpu.spectrogram.specgram` (asserted in tests).

@@ -116,8 +116,8 @@ def _welch_sharded_jit(x, y, win, s1sq_enbw, *, navr, nwins, hop, nfft,
         # x_l: (B_local,) time-sharded — or the replicated (nwins,) model
         # when ntmodel (reference fft_analysis.py:170-191); y_l: (nch_l, B).
         # Complex signals ride as a stacked (re, im) leading axis of size 2
-        # — x_l (2, B), y_l (nch_l, 2, B) — so no complex dtype reaches the
-        # device (the TPU backend has none); the transform consumes the
+        # — x_l (2, B), y_l (nch_l, 2, B) — so no complex dtype crosses a
+        # collective; the transform consumes the
         # pair directly (reference two-sided branch fft_analysis.py:423-427)
         y_l = _detrend_sharded(y_l, detrend_style, "t", nt_true)
 

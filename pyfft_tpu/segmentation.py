@@ -170,7 +170,7 @@ def plan_segments(nsig: int, navr: int | None = None,
 
 
 # --------------------------------------------------------------------------- #
-# Batched framing (the TPU-native replacement of the segment loop)
+# Batched framing (the batched replacement of the segment loop)
 # --------------------------------------------------------------------------- #
 
 def frame_signal(x, nwins: int, hop: int, navr: int):
@@ -181,10 +181,9 @@ def frame_signal(x, nwins: int, hop: int, navr: int):
     This replaces the reference's hot Python loop over segments
     (``fft_analysis.py:362-388``) with a batched gather; every downstream op
     (window multiply, FFT, power) is then fully batched over the segment
-    axis — which is what feeds the MXU/VPU efficiently on TPU.
+    axis.
 
-    TPU performance note: an element-level gather of ``navr * nwins``
-    indices is slow on TPU (measured ~25 ms for 16M indices).  When ``hop``
+    An element-level gather of ``navr * nwins`` indices is slow.  When ``hop``
     and ``nwins`` share a reasonably large common block ``b`` (always true
     for the standard overlap ratios: 50% -> b = hop), the signal is
     reshaped to ``(nt/b, b)`` rows and segments become a *row-level* gather

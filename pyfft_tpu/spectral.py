@@ -1,17 +1,17 @@
-"""Welch-averaged auto-/cross-spectral estimation — the TPU-native core.
+"""Welch-averaged auto-/cross-spectral estimation — the device core.
 
 This module provides the role of the reference's ``fft_pwelch``
-(reference ``fft_analysis.py:36-791``), redesigned TPU-first:
+(reference ``fft_analysis.py:36-791``), redesigned for batched device
+execution:
 
 * the per-segment Python loop (reference ``fft_analysis.py:362-388``) becomes
   a single batched ``frame -> window -> FFT -> power`` pipeline under one
   ``jax.jit`` — the segment axis is a clean batch dimension;
 * two device transform paths:
-  - ``xla``: complex ``jnp.fft`` (CPU/GPU and complex-capable TPUs);
+  - ``xla``: complex ``jnp.fft`` (cuFFT on the GPU) — the default;
   - ``mxu``: real-arithmetic matmul-DFTs (:mod:`pyfft_tpu.ops.mxu_fft`) —
-    complex data travels as (re, im) pairs.  This is the TPU path: the
-    backend here exposes no complex dtype, and dense DFT matmuls are what
-    feed the 128x128 MXU;
+    complex data travels as (re, im) pairs; only an explicit
+    ``fft_backend='mxu'`` selects it;
 * all shape arithmetic is resolved statically at trace time
   (:mod:`pyfft_tpu.segmentation`);
 * the O(nfreq) finalization (coherence, variances, amplitude spectra,
@@ -53,12 +53,9 @@ __all__ = ["fft_pwelch", "fftinfosc", "Cxy_Cxy2", "welch_cross_spectra",
 def backend_supports_complex() -> bool:
     """True when the default JAX backend fully supports complex arrays.
 
-    TPU backends here reject complex ops and even complex host<->device
-    transfers (``UNIMPLEMENTED``) — and a compile-only probe is not enough
-    because kernels with real outputs can compile while complex transfers
-    still fail at runtime.  The decision is therefore platform-based: only
-    CPU/GPU take the complex ``jnp.fft`` path; everything else (TPU) uses
-    the real-pair MXU path, which is also the architecture target.
+    The decision is platform-based: CPU and GPU take the complex
+    ``jnp.fft`` path; a backend without complex support would fall back to
+    the real-pair matmul path.
     """
     return jax.default_backend() in ("cpu", "gpu", "cuda", "rocm")
 
@@ -66,12 +63,18 @@ def backend_supports_complex() -> bool:
 def resolve_fft_backend(fft_backend=None) -> str:
     """Resolve 'auto'/None to a concrete transform path.
 
-    'xla' = complex ``jnp.fft`` (CPU/GPU); 'mxu' = real-pair matmul DFTs
-    (TPU default); 'pallas' = fused accumulate kernel fast path (one-sided
-    real-input Welch; falls back to 'mxu' where inapplicable).
+    'xla' = complex ``jnp.fft`` (cuFFT on the GPU, the default);
+    'mxu' = real-pair matmul DFTs (:mod:`pyfft_tpu.ops.mxu_fft`).
     """
-    if fft_backend in ("xla", "mxu", "pallas"):
+    if fft_backend in ("xla", "mxu"):
         return fft_backend
+    if fft_backend == "pallas":
+        raise ValueError(
+            "fft_backend='pallas' was removed together with the fused-kernel "
+            "tier; use the default (None/'auto'), 'xla' or 'mxu'")
+    if fft_backend not in (None, "auto"):
+        raise ValueError(f"unknown fft_backend {fft_backend!r}; expected "
+                         "None, 'auto', 'xla' or 'mxu'")
     return "xla" if backend_supports_complex() else "mxu"
 
 
@@ -90,7 +93,7 @@ class fftinfosc(Struct):
     window norms (S1, S2, NENBW, ENBW), averaged spectra, coherence/phase with
     propagated variances, linear amplitude spectra, and per-segment arrays.
 
-    The fused-Pallas and mesh-sharded fast paths do not materialize the
+    The mesh-sharded path does not materialize the
     per-segment arrays (``Pxx_seg``/``Xfft_seg``/…, reference
     ``fft_analysis.py:391-393``) during the hot dispatch; instead the first
     attribute access transparently recomputes them with the generic batched
@@ -113,12 +116,11 @@ class fftinfosc(Struct):
                 fill(self)
                 return self.__dict__[name]
             raise AttributeError(
-                f"fftinfo.{name} is not available: this result came from a "
-                "fast path (fused-Pallas or mesh-sharded Welch) that does "
-                "not keep per-segment arrays, and the inputs were not "
-                "retained for recomputation.  Re-run fft_pwelch with "
-                "fft_backend='mxu' (TPU) or 'xla' (CPU/GPU) to populate "
-                "them.")
+                f"fftinfo.{name} is not available: this result came from "
+                "the mesh-sharded Welch path, which does not keep "
+                "per-segment arrays, and the inputs were not retained for "
+                "recomputation.  Re-run fft_pwelch without mesh= to "
+                "populate them.")
         raise AttributeError(
             f"{type(self).__name__!s} object has no attribute {name!r}")
 
@@ -218,7 +220,7 @@ def _onesided_amp_scale(nfft: int, nnyquist: int) -> np.ndarray:
                                    "ntmodel"))
 def _welch_core_xla(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
                     nfft, nnyquist, onesided, detrend_style, ntmodel):
-    """Complex-dtype Welch segment spectra (CPU/GPU path).
+    """Complex-dtype Welch segment spectra (the default path).
 
     Inputs: ``x (nt,)``, ``y (nch, nt)``, ``win (nwins,)``,
     ``s1sq_enbw = S1^2 * ENBW`` (traced so window changes do not recompile).
@@ -272,7 +274,7 @@ def _welch_core_xla(x, y, win, s1sq_enbw, *, navr, nwins, noverlap,
                                    "ntmodel"))
 def _welch_core_mxu(xr, xi, yr, yi, win, s1sq_enbw, *, navr, nwins, noverlap,
                     nfft, nnyquist, onesided, detrend_style, ntmodel):
-    """Real-pair Welch segment spectra (TPU path; no complex dtype anywhere).
+    """Real-pair Welch segment spectra (no complex dtype anywhere).
 
     ``xi``/``yi`` are None for exactly-real inputs.  The cross-spectrum
     follows the reference's ``Y conj(X)`` convention (``fft_analysis.py:393``):
@@ -339,55 +341,8 @@ def _welch_core_mxu(xr, xi, yr, yi, win, s1sq_enbw, *, navr, nwins, noverlap,
                 Pxy_im=jnp.mean(Pxy_im, axis=1).T * norm)
 
 
-@partial(jax.jit, static_argnames=("navr", "nwins", "noverlap",
-                                   "detrend_style"))
-def _detrend_and_frame(xr, yr, *, navr, nwins, noverlap, detrend_style):
-    det = detrend_func(detrend_style)
-    hop = nwins - noverlap
-    return (seg.frame_signal(det(xr, axis=-1), nwins, hop, navr),
-            seg.frame_signal(det(yr, axis=-1), nwins, hop, navr))
-
-
-def _welch_core_pallas(xr, yr, win_np, s1sq_enbw, *, navr, nwins, noverlap,
-                       nfft, nnyquist, detrend_style):
-    """Fused-kernel Welch path (one-sided, real inputs).
-
-    Uses :func:`pyfft_tpu.ops.pallas_welch.welch_pallas_fused`: detrend,
-    framing, the reference STFT and the cross-power accumulation run in a
-    single device dispatch; the (navr, nfreq) STFT never hits HBM;
-    per-segment arrays are not produced (the price of the fast path).
-
-    One subtlety: the one-sided bin doubling is a *vector* scale
-    (interior bins x2, DC and the even-nfft edge bin x1), so the scalar
-    ``norm`` handed to the kernel carries only S1^2*ENBW*navr and the
-    vector fixup is applied to the (tiny) averaged outputs here.
-    """
-    from .ops.pallas_welch import (welch_pallas_fused, welch_fir_pallas_fused,
-                                   pallas_welch2_applicable)
-
-    norm = np.float32(1.0 / (s1sq_enbw * navr))
-    nch = 1 if np.ndim(yr) == 1 else np.shape(yr)[0]
-    if (detrend_style in (0, 1)
-            and pallas_welch2_applicable(nwins, noverlap, navr, nch)):
-        # v3 factored-transform kernel (global detrend, matching the
-        # reference's pre-loop detrend and the mxu/xla cores)
-        Pxx, Pyy, Pxy_re, Pxy_im = welch_fir_pallas_fused(
-            xr, yr, win_np, nnyquist, norm, navr=navr, nwins=nwins,
-            noverlap=noverlap, detrend_style=detrend_style)
-    else:
-        Pxx, Pyy, Pxy_re, Pxy_im = welch_pallas_fused(
-            xr, yr, win_np, nnyquist, norm, navr=navr, nwins=nwins,
-            noverlap=noverlap, detrend_style=detrend_style)
-    scale = _onesided_power_scale(nfft, nnyquist).astype(np.float32)
-    Pxx = np.asarray(Pxx) * scale
-    Pyy = (np.asarray(Pyy) * scale).T
-    Pxy_re = (np.asarray(Pxy_re) * scale).T
-    Pxy_im = (np.asarray(Pxy_im) * scale).T
-    return dict(Pxx=Pxx, Pyy=Pyy, Pxy_re=Pxy_re, Pxy_im=Pxy_im)
-
-
 def _split_pair(a):
-    """Host-side complex -> (re, im | None) split for the MXU path."""
+    """Host-side complex -> (re, im | None) split for the real-pair path."""
     a = np.asarray(a)
     if np.iscomplexobj(a):
         return (jnp.asarray(np.ascontiguousarray(a.real)),
@@ -397,86 +352,6 @@ def _split_pair(a):
 
 def _run_welch_core(x_in, y_in, win, s1sq_enbw, *, backend, **static):
     """Dispatch to a transform path; returns numpy-complex segment results."""
-    if backend == "pallas":
-        x_np = np.asarray(x_in)
-        y_np = np.asarray(y_in)
-        from .ops.pallas_welch import pallas_welch_applicable
-        from .ops.pallas_welch3 import (pallas_welch3_cplx_applicable,
-                                        welch_pallas3_twosided)
-        is_cplx = np.iscomplexobj(x_np) or np.iscomplexobj(y_np)
-        if (is_cplx and not static["onesided"] and not static["ntmodel"]
-                and static["detrend_style"] in (0, 1)
-                and pallas_welch3_cplx_applicable(
-                    static["nwins"], static["noverlap"], static["navr"],
-                    y_np.shape[1], static["detrend_style"])):
-            # fused two-sided complex path (the Doppler IQ configuration)
-            norm = np.float32(1.0 / (s1sq_enbw * static["navr"]))
-            Pxx, Pyy, Pr, Pi = welch_pallas3_twosided(
-                x_np.astype(np.complex64), y_np.T.astype(np.complex64),
-                np.asarray(win), norm, navr=static["navr"],
-                nwins=static["nwins"], noverlap=static["noverlap"],
-                detrend_style=static["detrend_style"])
-            sh = lambda a: np.fft.fftshift(np.asarray(a), axes=-1)  # noqa
-            return dict(
-                Pxx=sh(Pxx).astype(np.complex128),
-                Pyy=sh(Pyy).T.astype(np.complex128),
-                Pxy=(sh(Pr) + 1j * sh(Pi)).T,
-                Pxx_seg=None, Pyy_seg=None, Pxy_seg=None,
-                Xfft_seg=None, Yfft_seg=None)
-        from .ops.pallas_welch import pallas_welch2_applicable
-        import os as _os
-        if (_os.environ.get("PYFFT_PACKED") == "1"
-                and static["onesided"] and not static["ntmodel"]
-                and not is_cplx and y_np.shape[1] == 1
-                and static["detrend_style"] in (0, 1)):
-            # opt-in: single-cross-channel lane packing (interleaved
-            # (x_part, y_part) virtual-channel pairs).  Wins only where
-            # per-chunk fixed costs dominate the C=2 kernel; measured
-            # per-chip by bench.py config 1 (variant field)
-            from .ops.pallas_welch3 import (packed_pair_geometry,
-                                            welch_pair_packed)
-            if packed_pair_geometry(static["navr"], static["nwins"],
-                                    static["noverlap"]) is not None:
-                norm = np.float32(1.0 / (s1sq_enbw * static["navr"]))
-                Pxx, Pyy, Pr, Pi = welch_pair_packed(
-                    x_np.astype(np.float32), y_np[:, 0].astype(np.float32),
-                    np.asarray(win), static["nnyquist"], norm,
-                    navr=static["navr"], nwins=static["nwins"],
-                    noverlap=static["noverlap"],
-                    detrend_style=static["detrend_style"])
-                sc = _onesided_power_scale(static["nfft"],
-                                           static["nnyquist"]).astype(
-                                               np.float32)
-                return dict(
-                    Pxx=(np.asarray(Pxx) * sc).astype(np.complex128),
-                    Pyy=((np.asarray(Pyy) * sc).T).astype(np.complex128),
-                    Pxy=((np.asarray(Pr) + 1j * np.asarray(Pi)) * sc).T,
-                    Pxx_seg=None, Pyy_seg=None, Pxy_seg=None,
-                    Xfft_seg=None, Yfft_seg=None)
-        applicable = (static["onesided"] and not static["ntmodel"]
-                      and not is_cplx
-                      and (pallas_welch2_applicable(
-                               static["nwins"], static["noverlap"],
-                               static["navr"],
-                               detrend_style=static["detrend_style"])
-                           or pallas_welch_applicable(static["nwins"],
-                                                      static["nnyquist"],
-                                                      static["navr"])))
-        if applicable:
-            out = _welch_core_pallas(
-                jnp.asarray(x_np, jnp.float32),
-                jnp.asarray(y_np.T, jnp.float32), np.asarray(win),
-                s1sq_enbw, navr=static["navr"], nwins=static["nwins"],
-                noverlap=static["noverlap"], nfft=static["nfft"],
-                nnyquist=static["nnyquist"],
-                detrend_style=static["detrend_style"])
-            return dict(
-                Pxx=out["Pxx"].astype(np.complex128),
-                Pyy=out["Pyy"].astype(np.complex128),
-                Pxy=out["Pxy_re"] + 1j * out["Pxy_im"],
-                Pxx_seg=None, Pyy_seg=None, Pxy_seg=None,
-                Xfft_seg=None, Yfft_seg=None)
-        backend = "mxu"
     if backend == "xla":
         out = _welch_core_xla(jnp.asarray(x_in), jnp.asarray(y_in.T),
                               jnp.asarray(win), jnp.asarray(s1sq_enbw),
@@ -501,16 +376,15 @@ def _run_welch_core(x_in, y_in, win, s1sq_enbw, *, backend, **static):
 
 
 def _make_segment_fill(x_in, y_in, win, s1sq_enbw, **static):
-    """One-shot per-segment recompute for the fast paths (lazy fill).
+    """One-shot per-segment recompute for the mesh path (lazy fill).
 
     Runs the generic batched core (which always materializes the
     reference's ``P??_seg``/``?fft_seg`` arrays, ``fft_analysis.py:391-393``)
     over the retained inputs and writes the fields into ``info``.
     """
     def fill(info):
-        backend = "xla" if backend_supports_complex() else "mxu"
-        out = _run_welch_core(x_in, y_in, win, s1sq_enbw, backend=backend,
-                              **static)
+        out = _run_welch_core(x_in, y_in, win, s1sq_enbw,
+                              backend=resolve_fft_backend(None), **static)
         info.Pxx_seg = out["Pxx_seg"]
         info.Pyy_seg = out["Pyy_seg"]
         info.Pxy_seg = out["Pxy_seg"]
@@ -601,56 +475,24 @@ def welch_filtered_cross_spectra(x, y, taps, win, plan: seg.SegmentPlan,
                                  fs: float, *, detrend_style=1,
                                  fft_backend=None):
     """One-sided Welch auto-/cross-spectral densities of FIR-prefiltered
-    REAL signals — the framework's headline fused chain (a TPU-native
-    extension; the reference filters and estimates in separate passes,
-    ``filters.py:36-123`` then ``fft_analysis.py:362-388``).
+    REAL signals — the framework's headline Welch+FIR chain (the reference
+    filters and estimates in separate passes, ``filters.py:36-123`` then
+    ``fft_analysis.py:362-388``).
 
     ``x (nt,)`` reference, ``y (nt,) | (nch, nt)`` channels, ``taps`` a
     causal FIR applied to every signal (``np.convolve(sig, taps,
-    'full')[:nt]``), detrend = global mean/none of the *filtered* span.
-    On the Pallas path the filter, channel interleave, detrend,
-    segmentation, transforms, and cross-power accumulation run as ONE
-    kernel dispatch; other backends filter first and delegate to
-    :func:`welch_cross_spectra`.  Returns the same dict contract
-    (averaged spectra; per-segment arrays are ``None`` on the fused path).
+    'full')[:nt]``), detrend = global mean/none/linear of the *filtered*
+    span.  The signals are filtered by overlap-save (:func:`fir_filter`)
+    and then estimated by :func:`welch_cross_spectra`, whose dict contract
+    this returns.
     """
-    from .ops.pallas_welch import (welch_fir_pallas_fused,
-                                   pallas_welch2_applicable)
-
-    x = np.asarray(x)
-    y2 = np.atleast_2d(np.asarray(y))
-    taps_np = np.asarray(taps, np.float64)
-    win_np = np.asarray(win)
-    s1 = seg.get_s1(win_np)
-    enbw = seg.get_enbw(fs, s1, seg.get_s2(win_np))
-    backend = resolve_fft_backend(fft_backend)
-    if (backend in ("pallas", "mxu")
-            and not np.iscomplexobj(x) and not np.iscomplexobj(y2)
-            and detrend_style in (0, 1)
-            and pallas_welch2_applicable(plan.nwins, plan.noverlap,
-                                         plan.navr, y2.shape[0], taps_np,
-                                         detrend_style)):
-        norm = np.float32(1.0 / (s1 ** 2 * enbw * plan.navr))
-        Pxx, Pyy, Pr, Pi = welch_fir_pallas_fused(
-            jnp.asarray(x, jnp.float32), jnp.asarray(y2, jnp.float32),
-            win_np, plan.nnyquist, norm, navr=plan.navr, nwins=plan.nwins,
-            noverlap=plan.noverlap, taps=taps_np,
-            detrend_style=int(detrend_style))
-        sc = _onesided_power_scale(plan.nfft, plan.nnyquist)
-        out = dict(Pxx=np.asarray(Pxx) * sc,
-                   Pyy=(np.asarray(Pyy) * sc).T,
-                   Pxy=((np.asarray(Pr) + 1j * np.asarray(Pi)) * sc).T,
-                   Pxx_seg=None, Pyy_seg=None, Pxy_seg=None,
-                   Xfft_seg=None, Yfft_seg=None)
-        freq = np.fft.fftfreq(plan.nfft, 1.0 / fs)
-        out["freq"] = freq[:plan.nnyquist]
-        return out
     from .filters import fir_filter
-    xf = np.asarray(fir_filter(x, taps_np))
-    yf = np.asarray(fir_filter(y2, taps_np))
-    return welch_cross_spectra(xf, yf, win_np, plan, fs, onesided=True,
+    taps_np = np.asarray(taps, np.float64)
+    xf = np.asarray(fir_filter(np.asarray(x), taps_np))
+    yf = np.asarray(fir_filter(np.atleast_2d(np.asarray(y)), taps_np))
+    return welch_cross_spectra(xf, yf, win, plan, fs, onesided=True,
                                detrend_style=detrend_style,
-                               fft_backend=backend)
+                               fft_backend=fft_backend)
 
 
 # --------------------------------------------------------------------------- #
@@ -665,7 +507,7 @@ def csd_oracle(x, y, nfft, fs, detrend=None, window=None, noverlap=0,
     (``fft_analysis.py:288-303``): per-segment detrend, window, FFT,
     ``conj(X) * Y`` averaged, scaled by ``1/(Fs * S2)``, with one-sided
     doubling of non-DC/non-Nyquist bins.  Kept in NumPy on purpose — it is
-    the *independent* implementation used to validate the TPU path.
+    the *independent* implementation used to validate the device path.
     """
     x = np.asarray(x)
     y = np.asarray(y)
@@ -731,10 +573,10 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
     - ``detrend_style``: 1 mean (default), 0 none, -1 linear;
     - full-span inputs are reflect-extended at the boundaries (``:196-205``);
     - ``useMLAB=True`` runs the independent NumPy oracle path instead of the
-      TPU pipeline (role of ``matplotlib.mlab.csd``; ``:288-303``).
+      device pipeline (role of ``matplotlib.mlab.csd``; ``:288-303``).
 
     ``fft_backend``: None/'auto' (probe the device), 'xla' (complex
-    ``jnp.fft``) or 'mxu' (real-pair matmul DFTs — the TPU path).
+    ``jnp.fft``, cuFFT on the GPU) or 'mxu' (real-pair matmul DFTs).
 
     ``mesh``: ``None`` (single device), a ``jax.sharding.Mesh`` with
     ``('ch', 't')`` axes, or ``'auto'`` (build one over every visible
@@ -950,23 +792,13 @@ def fft_pwelch(tvec, sigx, sigy, tbounds=None, Navr=None, windowoverlap=None,
         Pxx = out["Pxx"]
         Pyy = out["Pyy"]
         Pxy = out["Pxy"]
-
-        if out["Pxy_seg"] is None:
-            # fused fast path: per-segment arrays on first access
-            fftinfo._defer_segments(_make_segment_fill(
-                x_in, y_in, win, fftinfo.S1 ** 2 * fftinfo.ENBW,
-                navr=int(Navr), nwins=int(nwins), noverlap=int(noverlap),
-                nfft=int(nfft), nnyquist=int(Nnyquist),
-                onesided=bool(onesided), detrend_style=int(detrend_style),
-                ntmodel=bool(nTmodel)))
-        else:
-            fftinfo.Pxx_seg = out["Pxx_seg"]
-            fftinfo.Pyy_seg = out["Pyy_seg"]
-            fftinfo.Pxy_seg = out["Pxy_seg"]
-            fftinfo.Xfft_seg = out["Xfft_seg"]
-            fftinfo.Yfft_seg = out["Yfft_seg"]
-            fftinfo.phixy_seg = np.angle(out["Pxy_seg"])
-            fftinfo.varphi_seg = np.zeros_like(fftinfo.phixy_seg)
+        fftinfo.Pxx_seg = out["Pxx_seg"]
+        fftinfo.Pyy_seg = out["Pyy_seg"]
+        fftinfo.Pxy_seg = out["Pxy_seg"]
+        fftinfo.Xfft_seg = out["Xfft_seg"]
+        fftinfo.Yfft_seg = out["Yfft_seg"]
+        fftinfo.phixy_seg = np.angle(out["Pxy_seg"])
+        fftinfo.varphi_seg = np.zeros_like(fftinfo.phixy_seg)
 
     # ---------------- shared finalization (host, reference :489-648) -------
     Pxx = np.asarray(Pxx)

@@ -1,4 +1,4 @@
-"""Spectrograms and the STFT convenience wrapper (TPU-native).
+"""Spectrograms and the STFT convenience wrapper.
 
 Role of the reference ``spectrogram.py``: the simple hop-loop spectrogram
 ``specgram`` (reference ``spectrogram.py:49-134``, with its sqrt(8/3)
@@ -6,8 +6,8 @@ Hanning power correction at ``:109``) and the ``stft`` wrapper that drives an
 ``fftanal`` instance (``:140-168``), plus the ``test_case`` signal generator
 (``:172-202``).
 
-TPU-first: the per-window loop becomes one batched frame->window->|FFT|^2
-pipeline (real-pair MXU transforms on TPU); windows are a batch axis.
+Batched: the per-window loop becomes one frame->window->|FFT|^2 device
+pipeline; windows are a batch axis.
 """
 from __future__ import annotations
 

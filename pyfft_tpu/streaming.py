@@ -3,7 +3,7 @@
 SURVEY §5.4/§5.7: the reference persists *results* only (HDF5 dumps,
 HeatPulse_Funcs.py:264-296) and its long-sequence story is the in-memory
 Welch segment loop (fft_analysis.py:362-388).  This module supplies the
-TPU-native run-time equivalents the survey specifies:
+device run-time equivalents the survey specifies:
 
 - **O(block) memory**: the signal arrives in arbitrary-size time blocks;
   only segment *sums* (associative psum-style accumulators) and a
@@ -135,8 +135,6 @@ class StreamingWelch:
         self.win = np.asarray(win, dtype=np.float64)
         self.nnyquist = seg.get_nnyquist(self.nwins)
         self.backend = resolve_fft_backend(fft_backend)
-        if self.backend == "pallas":
-            self.backend = "mxu"
         self.onesided = bool(onesided)
 
         nf = self.nnyquist if self.onesided else self.nwins

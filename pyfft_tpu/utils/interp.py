@@ -62,7 +62,7 @@ def trapz_var(x, y, ey=None, vary=None, dim=0):
     """
     import jax
     # host inputs stay numpy: integratespectra feeds complex128 spectra,
-    # which the TPU backend can neither move nor transfer back
+    # which would lose precision on a device without x64
     traced = any(isinstance(a, jax.core.Tracer) for a in (x, y, vary))
     xp = jnp if traced else np
     x = xp.asarray(x)
@@ -116,8 +116,8 @@ def reshapech(x):
     (``fft_analysis.py:883-888``): 1-D inputs become a single column.
 
     Shape-only — never converts the input: pushing host complex arrays
-    through ``jnp.asarray`` would land them on the default accelerator,
-    and the TPU backend cannot transfer complex buffers back.
+    through ``jnp.asarray`` would land them on the default accelerator
+    for nothing.
     """
     if not hasattr(x, "ndim"):
         x = np.asarray(x)

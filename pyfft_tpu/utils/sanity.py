@@ -1,7 +1,7 @@
 """Consistency sanitizers (SURVEY §5.2).
 
 The reference is single-threaded NumPy — no race conditions exist, so it
-ships nothing here.  The TPU build's analogous hazards are (a) divergence
+ships nothing here.  The device build's analogous hazards are (a) divergence
 between traced/compiled and eager execution, (b) silent NaN/Inf
 propagation through jitted pipelines, and (c) nondeterminism between
 sharded and single-device execution (collective reassociation).  Each gets

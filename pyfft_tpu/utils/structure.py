@@ -1,4 +1,4 @@
-"""Result containers for the TPU spectral-analysis framework.
+"""Result containers for the spectral-analysis framework.
 
 The reference package carries all results in a mutable attribute-bag
 (``pybaseutils.Struct``; see the output-schema definition in the reference's

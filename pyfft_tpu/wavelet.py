@@ -2,13 +2,13 @@
 
 The reference's ``__init__`` optionally imports a ``pycwt`` wavelet
 subpackage that is not shipped (reference ``__init__.py:38-42``) — the
-capability its API promises but never delivers.  TPU-native version: the
+capability its API promises but never delivers.  Batched version: the
 CWT at all scales is ONE batched spectral multiply,
 
     W[a, n] = ifft( fft(x)[k] * conj(psi_hat(s_a * omega_k)) )[n]
 
 so the scale axis rides the device batch dimension (a (J+1, N) element-wise
-multiply + batched inverse FFT — MXU/VPU friendly, no per-scale loop).
+multiply + batched inverse FFT, no per-scale loop).
 
 API follows the Torrence & Compo conventions (the pycwt lineage):
 

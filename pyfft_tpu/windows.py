@@ -1,7 +1,7 @@
 """Window functions and the recommended-overlap (ROV) registry.
 
-TPU-first design note
----------------------
+Design note
+-----------
 Window generation is *configuration-time* work: a window is a small 1-D
 constant that is computed once on the host and then closed over by the
 jit-compiled spectral kernels (where the multiply is fused into the framing /

@@ -1,7 +1,7 @@
 """Reference-parity goldens for the five BASELINE benchmark configs.
 
 SURVEY §4(b): run the reference's homebrew path on the BASELINE configs on
-CPU and assert the TPU-framework implementation matches within the stated
+CPU and assert the framework's implementation matches within the stated
 SNR/tolerance bound.  Sizes are scaled down (the bench runs the full sizes
 on hardware); the *configurations* — window, overlap, filters, demod chain —
 are the BASELINE ones (BASELINE.json / BASELINE.md).
@@ -61,7 +61,7 @@ def test_config2_stft_chirp_golden(ref_fft):
 def test_config3_fir_notch_chain(tone):
     """Config 3: FIR band-pass + notch chain.  The FIR convolution must be
     exact vs numpy; the notch must bite at its design frequency (the
-    reference's IIR filtfilt has no streaming TPU form — the documented
+    reference's IIR filtfilt has no streaming parallel form — the documented
     equivalence is linear-phase FIR, PARITY.md)."""
     t, x = tone
     bp = np.asarray(ft.filters.firwin(129, [0.05, 0.45], pass_zero=False))

@@ -100,7 +100,7 @@ def test_class_nosigy():
 
 @pytest.mark.parametrize("complexsig", [False, True])
 def test_mxu_backend_matches_xla(complexsig):
-    """The real-pair (TPU) transform path must reproduce the complex path."""
+    """The real-pair transform path must reproduce the complex path."""
     tvec, sigx, sigy = _sigs()
     if complexsig:
         sigx = sigx + 1j * np.roll(sigx, 5)
@@ -161,39 +161,6 @@ def test_plot_correlations_headless():
     plt.close("all")
 
 
-def test_stft_segments_pallas_fast_path_matches_xla():
-    """The fused v3 STFT (fft_backend='pallas') must reproduce the generic
-    core including tt and the trapezoid pseg (reference fft_win contract,
-    fft_analysis.py:2126-2203)."""
-    from pyfft_tpu.fftanal import stft_segments
-    from pyfft_tpu import segmentation as sgm
-    rng = np.random.default_rng(11)
-    fs, nt = 1e3, 1 << 13
-    t = np.arange(nt) / fs
-    for sig, onesided in [
-        (np.sin(2 * np.pi * 60 * t) + 2.0 + 0.1 * rng.standard_normal(nt),
-         True),
-        ((np.exp(1j * 2 * np.pi * 60 * t)
-          + 0.1 * (rng.standard_normal(nt) + 1j * rng.standard_normal(nt))),
-         False),
-    ]:
-        plan = sgm.plan_segments(nt, nwins=512, windowoverlap=0.5)
-        win = np.hanning(plan.nwins + 1)[:-1]
-        tt1, f1, X1, p1 = stft_segments(sig, t, win, plan, fs,
-                                        onesided=onesided,
-                                        fft_backend="xla")
-        tt2, f2, X2, p2 = stft_segments(sig, t, win, plan, fs,
-                                        onesided=onesided,
-                                        fft_backend="pallas")
-        np.testing.assert_allclose(tt2, np.asarray(tt1), rtol=1e-9)
-        np.testing.assert_allclose(f2, f1, atol=1e-12)
-        s = np.abs(np.asarray(X1)).max()
-        np.testing.assert_allclose(np.asarray(X2), np.asarray(X1),
-                                   rtol=1e-4, atol=1e-5 * s)
-        np.testing.assert_allclose(np.asarray(p2), np.asarray(p1),
-                                   rtol=1e-5, atol=1e-9)
-
-
 def test_stft_useMLAB_scipy_oracle_branch():
     """fftanal.stft(useMLAB=True) must route through the independent
     scipy.signal.stft oracle with the reference's boundary conventions
@@ -251,29 +218,3 @@ def test_calcAmp_calcPh1_preallocate():
     assert abs(np.asarray(fa.ph)[ipk2] + 0.4) < 0.15
     fa.__preallocateFFT__()
     assert fa.Pxy.dtype == np.complex128 and fa.Pxy.size == 0
-
-
-def test_fftpwelch_class_lazy_segments_delegate():
-    """After fftanal.fftpwelch() on a fast path (pallas), the class must
-    still expose the per-segment arrays (delegated to the lazy fftinfo
-    container) and crosscorr_stft must work — the reference contract."""
-    from pyfft_tpu.fftanal import fftanal
-    rng = np.random.default_rng(2)
-    nt = 1 << 14
-    t = np.arange(nt) / 1e3
-    x = np.sin(2 * np.pi * 97.0 * t) + 0.1 * rng.standard_normal(nt)
-    y = np.sin(2 * np.pi * 97.0 * t - 0.5) + 0.1 * rng.standard_normal(nt)
-    fa = fftanal(t, x, y, tper=0.512, windowoverlap=0.5, plotit=False,
-                 verbose=False, fft_backend="pallas")
-    fa.fftpwelch()
-    assert "Pxx_seg" not in fa.__dict__          # still lazy after update()
-    seg_cls = np.asarray(fa.Pxx_seg)             # delegate -> fill -> cache
-    assert "Xfft_seg" in fa.__dict__
-    fa.crosscorr_stft()                          # consumes the seg arrays
-    assert hasattr(fa, "Rxy_seg") and hasattr(fa, "corrcoef_seg")
-    # matches an eager xla run
-    fb = fftanal(t, x, y, tper=0.512, windowoverlap=0.5, plotit=False,
-                 verbose=False, fft_backend="xla")
-    fb.fftpwelch()
-    np.testing.assert_allclose(seg_cls, np.asarray(fb.Pxx_seg),
-                               rtol=1e-9, atol=1e-12)

@@ -1,4 +1,5 @@
-"""Filter design/application vs scipy oracles, plus TPU-path equivalences."""
+"""Filter design/application vs scipy oracles, plus transform-path
+equivalences."""
 import numpy as np
 import pytest
 import scipy.signal as dsp
@@ -236,17 +237,3 @@ def test_downsample_upsample_golden_vs_genuine_reference():
     assert up_ours.shape == up_ref.shape
     np.testing.assert_allclose(up_ours, up_ref, rtol=1e-6,
                                atol=1e-6 * np.max(np.abs(up_ref)))
-
-
-def test_fir_filter_tiled_public_chain():
-    """filters.fir_filter_tiled on the tile_rows row view must match the
-    rank-2 fir_filter(backend='pallas') entry — the zero-retile chain
-    documented for TPU pipelines."""
-    rng = np.random.default_rng(12)
-    x = rng.standard_normal((3, 20_000)).astype(np.float32)
-    taps = flt.firwin(97, [0.1, 0.4], pass_zero=False)
-    xr, nt = flt.tile_rows(x)
-    got = np.asarray(flt.untile_rows(flt.fir_filter_tiled(xr, taps), nt))
-    want = np.asarray(flt.fir_filter(x, taps, backend="pallas"))
-    np.testing.assert_allclose(got, want, rtol=2e-5,
-                               atol=2e-5 * np.abs(want).max())

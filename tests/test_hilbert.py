@@ -79,8 +79,9 @@ def test_envelope_demodulation():
 
 
 def test_analytic_factored_matches_scipy():
-    """The depth-3 contraction-chain analytic signal (the TPU fast path of
-    envelope_phase) against scipy.signal.hilbert, several factorizations."""
+    """The depth-3 contraction-chain analytic signal (envelope_phase's path
+    on a backend without complex support) against scipy.signal.hilbert,
+    several factorizations."""
     import jax.numpy as jnp
     from scipy.signal import hilbert as sp_hilbert
     from pyfft_tpu.hilbert import _analytic_factored
@@ -99,10 +100,9 @@ def test_analytic_factored_matches_scipy():
 
 
 def test_analytic_factored_bf16x3_precision_tier():
-    """The precision tier actually dispatched on-chip
-    (resolve_kernel_precision(None) == 'bf16x3', lax.Precision.HIGH) must
-    hold a stated accuracy contract too — on CPU the tier lowers to f32
-    matmuls, which still pins the contraction-chain structure."""
+    """The 'bf16x3' precision tier (lax.Precision.HIGH) must hold a stated
+    accuracy contract too — on CPU the tier lowers to f32 matmuls, which
+    still pins the contraction-chain structure."""
     import jax.numpy as jnp
     from scipy.signal import hilbert as sp_hilbert
     from pyfft_tpu.hilbert import _analytic_factored
@@ -160,57 +160,3 @@ def test_balanced3_factorization_minimal_vs_bruteforce():
         if g is not None:
             assert sum(g) == sum(b), (N, g, b)
             assert np.prod(g) == N
-
-
-def test_analytic_factored_slab_matches_reference_chain():
-    """The slab-fused Pallas middle section (_analytic_factored_slab) must
-    reproduce _analytic_factored exactly (same math, one dispatch) and
-    scipy.signal.hilbert within f32 round-off."""
-    import jax.numpy as jnp
-    from scipy.signal import hilbert as sp_hilbert
-    from pyfft_tpu.hilbert import _analytic_factored, _analytic_factored_slab
-    from pyfft_tpu.ops.mxu_fft import balanced3_factorization
-    rng = np.random.default_rng(4)
-    for nfft in [1 << 12, 9 * (1 << 10)]:
-        fac = balanced3_factorization(nfft)
-        x = rng.standard_normal(nfft).astype(np.float32)
-        zr0, zi0 = _analytic_factored(jnp.asarray(x), nfft=nfft,
-                                      factors=fac, prec="highest")
-        zr1, zi1 = _analytic_factored_slab(jnp.asarray(x), nfft=nfft,
-                                           factors=fac, prec="highest",
-                                           interpret=True)
-        z = sp_hilbert(np.float64(x))
-        scl = np.max(np.abs(z))
-        np.testing.assert_allclose(np.asarray(zr1), np.asarray(zr0),
-                                   atol=3e-6 * scl)
-        np.testing.assert_allclose(np.asarray(zi1), np.asarray(zi0),
-                                   atol=3e-6 * scl)
-        np.testing.assert_allclose(np.asarray(zr1), z.real, atol=3e-6 * scl)
-        np.testing.assert_allclose(np.asarray(zi1), z.imag, atol=3e-6 * scl)
-
-
-def test_analytic_factored_slab_bf16x3_split():
-    """The kernel's manual hi/lo bf16x3 dot (Mosaic rejects Precision.HIGH
-    — round-4 on-chip failure) must track the XLA HIGH-precision chain
-    within the bf16x3 error budget."""
-    import jax.numpy as jnp
-    from scipy.signal import hilbert as sp_hilbert
-    from pyfft_tpu.hilbert import _analytic_factored, _analytic_factored_slab
-    from pyfft_tpu.ops.mxu_fft import balanced3_factorization
-    rng = np.random.default_rng(7)
-    nfft = 1 << 12
-    fac = balanced3_factorization(nfft)
-    x = rng.standard_normal(nfft).astype(np.float32)
-    zr0, zi0 = _analytic_factored(jnp.asarray(x), nfft=nfft,
-                                  factors=fac, prec="highest")
-    zr1, zi1 = _analytic_factored_slab(jnp.asarray(x), nfft=nfft,
-                                       factors=fac, prec="bf16x3",
-                                       interpret=True)
-    z = sp_hilbert(np.float64(x))
-    scl = np.max(np.abs(z))
-    np.testing.assert_allclose(np.asarray(zr1), np.asarray(zr0),
-                               atol=2e-4 * scl)
-    np.testing.assert_allclose(np.asarray(zi1), np.asarray(zi0),
-                               atol=2e-4 * scl)
-    np.testing.assert_allclose(np.asarray(zr1), z.real, atol=2e-4 * scl)
-    np.testing.assert_allclose(np.asarray(zi1), z.imag, atol=2e-4 * scl)

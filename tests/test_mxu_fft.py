@@ -1,5 +1,5 @@
-"""MXU matmul-DFT backend vs numpy.fft (CPU, float64 for exactness; the same
-code path runs on TPU in float32)."""
+"""Real-pair matmul-DFT backend (``fft_backend='mxu'``) vs numpy.fft (CPU,
+float64 for exactness)."""
 import numpy as np
 import pytest
 

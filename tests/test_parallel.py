@@ -68,7 +68,7 @@ def test_sharded_welch_twosided():
 
 @needs8
 def test_sharded_welch_mxu_backend():
-    """The distributed path with real-pair transforms (as on TPU)."""
+    """The distributed path with real-pair transforms (fft_backend='mxu')."""
     t, x, y = _sigs()
     mesh = par.make_mesh(ch=1, t=8)
     plan = seg.plan_segments(len(x), navr=64, windowoverlap=0.5)
@@ -134,7 +134,10 @@ def test_host_mesh_and_report():
     assert dict(mesh.shape) == {"host": 1, "ch": 2, "t": n // 2}
     rep = scaling_report(mesh)
     assert rep["devices"] == n
-    assert "ICI" in rep["collectives"]["psum(welch average)"]
+    # one host's GPUs are joined all to all: every 't' collective stays
+    # intra-host; only the 'host' axis crosses the host network
+    assert "intra-host" in rep["collectives"]["psum(welch average)"]
+    assert "inter-host" in rep["collectives"]["all_gather(final spectra)"]
 
     import pytest
     with pytest.raises(ValueError):
@@ -309,25 +312,29 @@ def test_fft_pwelch_mesh_complex_matches_single_device():
 @needs8
 def test_collective_audit_and_scaling_projection():
     """The HLO collective audit must see exactly the collectives the design
-    calls for (halo ppermute + Welch psum, SURVEY §2.3) and the projected
-    2-host efficiency must clear the BASELINE >=85% bar."""
-    # the production workload (the BENCH headline shape, scaled to 8 shards)
-    r = par.project_scaling(nt=1 << 22, nch=8, nwins=4096,
-                            per_chip_samples_per_s=1.0e10)
-    ops = {c["op"] for c in r["collectives"]}
-    assert "collective-permute" in ops          # segment + FIR halos
+    calls for (halo ppermute + Welch psum, SURVEY §2.3; all-to-alls in the
+    four-step FFT), with byte volumes that follow the shapes."""
+    nwins, nch = 1024, 4
+    mesh = par.make_mesh(ch=1, t=8)
+    r = par.audit_mesh_paths(mesh, nt=1 << 18, nch=nch, nwins=nwins,
+                             ntaps=33, fft_n=1 << 14)
+    ops = {c["op"] for c in r["welch"]}
+    assert "collective-permute" in ops          # segment halos
     assert "all-reduce" in ops                  # Welch psum / detrend moments
-    assert r["bytes"]["halo_ppermute"] > 0
-    assert r["bytes"]["psum_allreduce"] > 0
-    # halo bytes scale with (nwins-1)*nch*4 (x halo + y halo + FIR halo)
-    expect_halo = (4096 - 1) * (8 + 1) * 4
-    assert r["bytes"]["halo_ppermute"] >= expect_halo
-    assert r["efficiency"]["no_overlap"] > 0.85
-    assert 0 < r["efficiency"]["no_overlap"] <= r["efficiency"]["overlapped"]
-    # and the model honestly reports a comm-bound regime for tiny work
-    r_small = par.project_scaling(nt=1 << 18, nch=4, nwins=1024,
-                                  per_chip_samples_per_s=1.0e10)
-    assert r_small["efficiency"]["no_overlap"] < r["efficiency"]["no_overlap"]
+    halo = sum(c["bytes"] for c in r["welch"]
+               if c["op"] == "collective-permute")
+    # x halo + y halos: (nwins - 1) f32 samples for the reference and
+    # each channel
+    assert halo >= (nwins - 1) * (nch + 1) * 4
+    fir_ops = {c["op"] for c in r["fir"]}
+    assert fir_ops == {"collective-permute"}    # FIR halo only
+    assert sum(c["bytes"] for c in r["fir"]) == (33 - 1) * nch * 4
+    a2a = [c for c in r["fft4step"] if c["op"] == "all-to-all"]
+    assert len(a2a) >= 3 and all(c["bytes"] > 0 for c in a2a)
+    # a 2x4 mesh halves the per-device channel block: FIR halo bytes halve
+    r2 = par.audit_mesh_paths(par.make_mesh(ch=2, t=4), nt=1 << 18,
+                              nch=nch, nwins=nwins, ntaps=33)
+    assert sum(c["bytes"] for c in r2["fir"]) == (33 - 1) * (nch // 2) * 4
 
 
 @needs8
@@ -350,28 +357,6 @@ def test_stft_sharded_complex_twosided():
                                          onesided=False, detrend_style=1)
     np.testing.assert_allclose(freq_s, freq_1, rtol=1e-12)
     np.testing.assert_allclose(X_s, np.asarray(X_1), rtol=1e-9, atol=1e-12)
-
-
-@needs8
-def test_project_scaling_paths_structure():
-    """The per-path scaling projection must audit all three collective
-    patterns and carry efficiency + DCN sensitivity for each (small
-    geometry to keep the compile cheap)."""
-    from pyfft_tpu.parallel import project_scaling_paths
-    r = project_scaling_paths(nt=1 << 18, nch=2, nwins=1024, ntaps=33,
-                              hosts=2, chips_per_host=4,
-                              stft_nwins=512, fft_n=(1 << 18))
-    assert set(r) == {"chain", "stft", "fft4step"}
-    for path, row in r.items():
-        assert 0 < row["efficiency"]["no_overlap"] <= 1, path
-        band = row["dcn_sensitivity"]
-        assert band["dcn_x0.5"] <= band["dcn_x2"], path
-    # the four-step transform must actually show its all-to-alls
-    a2a = [c for c in r["fft4step"]["collectives"]
-           if c["op"] == "all-to-all"]
-    assert len(a2a) >= 3 and all(c["bytes"] > 0 for c in a2a)
-    # the STFT path models the result gather explicitly
-    assert r["stft"]["bytes"]["result_gather"] > 0
 
 
 @needs8
@@ -457,3 +442,25 @@ def test_mesh_segment_fill_non_divisible_span():
     np.testing.assert_allclose(
         np.asarray(info2.Xfft_seg), np.asarray(info1.Xfft_seg),
         atol=1e-9 * np.abs(np.asarray(info1.Xfft_seg)).max())
+
+
+def test_audit_collectives_counts_async_pairs_once():
+    """GPU HLO splits collectives into -start/-done pairs: each is counted
+    once, from the -done result (the -start tuple holds buffers and
+    contexts, not payload)."""
+    hlo = "\n".join([
+        "%ars = f32[8,1024]{1,0} all-reduce-start(f32[8,1024]{1,0} %x), "
+        "replica_groups={{0,1}}",
+        "%ard = f32[8,1024]{1,0} all-reduce-done(f32[8,1024]{1,0} %ars)",
+        "%cps = (f32[4095]{0}, f32[4095]{0}, u32[], u32[]) "
+        "collective-permute-start(f32[4095]{0} %h), "
+        "source_target_pairs={{0,1}}",
+        "%cpd = f32[4095]{0} collective-permute-done((f32[4095]{0}, "
+        "f32[4095]{0}, u32[], u32[]) %cps)",
+        "%a2a = f32[4,256]{1,0} all-to-all(f32[4,256]{1,0} %z), "
+        "dimensions={0}",
+    ])
+    rows = par.audit_collectives(hlo)
+    assert [(r["op"], r["bytes"]) for r in rows] == [
+        ("all-reduce", 8 * 1024 * 4), ("collective-permute", 4095 * 4),
+        ("all-to-all", 4 * 256 * 4)]
